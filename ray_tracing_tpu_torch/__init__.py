@@ -2,10 +2,13 @@
 
 Loads the same reference-schema JSON scenes and renders them with the
 same estimator and the same per-ray counter-hash randomness, on a CPU
-tensor device or on an NVIDIA GPU, where the phase-A intersection runs
-as a hand-written CUDA kernel (ops/cuda_intersect.py).  The port covers
-the forward render of sphere and axis-aligned-rect scenes; see
-ROADMAP.md for what is still to come.
+tensor device or on an NVIDIA GPU, where the phase-A intersection
+(ops/cuda_intersect.py) and the atlas-gradient scatter-add
+(ops/cuda_scatter.py) run as hand-written CUDA kernels.  The port covers
+the forward render of sphere and axis-aligned-rect scenes and their
+full-parameter gradient pass (render/prb_scalar.py:
+``params_of`` -> ``prb_loss_and_grad_all`` -> ``scalar_tangent_pass``);
+see ROADMAP.md for what is still to come.
 """
 
 from ray_tracing_tpu_torch.models.camera import Camera, CameraParam

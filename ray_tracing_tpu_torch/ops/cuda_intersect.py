@@ -9,23 +9,18 @@ memory.  :func:`phase_a_plain` computes the same function from the
 candidate grids of ops/intersect.py.
 
 :func:`phase_a` launches the kernel for CUDA tensors and takes the
-plain version only for CPU tensors.  The kernel is built with ``nvcc``
-for ``sm_90a`` at first use, from the source in this package, into
-``build/kernels/`` beside the package, keyed by a hash of the source
-and flags; it is loaded with ``ctypes``.
+plain version only for CPU tensors.  The kernel is built at first use
+by ops/_build.py and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-from pathlib import Path
 
 import torch
 
 from ray_tracing_tpu_torch.models.scene import SceneData
+from ray_tracing_tpu_torch.ops import _build
 from ray_tracing_tpu_torch.ops import geometry as geo
 from ray_tracing_tpu_torch.ops.intersect import (
     INF,
@@ -36,12 +31,7 @@ from ray_tracing_tpu_torch.ops.intersect import (
     _sphere_phase_a,
 )
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "intersect.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
-)
+SOURCE = _build.CSRC / "intersect.cu"
 SPHERE_COLS = 4
 RECT_COLS = 14
 SMEM_LIMIT = 48 * 1024  # default dynamic shared memory a block may take
@@ -89,34 +79,10 @@ def phase_a_plain(sph, rect, ro, rd, t_min: float, t_max: float):
     return best_t, best_kind, best_idx
 
 
-def build() -> Path:
-    """Compile csrc/intersect.cu into a shared library (once per source
-    and flags) and return its path.  Raises if the build fails."""
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib = BUILD_DIR / f"intersect_{digest}.so"
-    if lib.exists():
-        return lib
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("building K1 needs the CUDA toolkit (nvcc); none was found")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp")
-    cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
-
-
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(_build.build(SOURCE)))
         fn = lib.phase_a_launch
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p, i, p, i, p, p, i, f, f, p, p, p, p]

@@ -19,13 +19,15 @@ from ray_tracing_tpu_torch.models.scene import (
     MAT_DIFFUSE_LIGHT,
     MAT_LAMBERTIAN,
     MAT_METAL,
+    TEX_IMAGE,
+    TEX_SOLID,
     SceneData,
 )
 from ray_tracing_tpu_torch.ops import geometry as geo
 from ray_tracing_tpu_torch.ops import sampling as smp
 from ray_tracing_tpu_torch.ops.intersect import Hit
 from ray_tracing_tpu_torch.ops.lights import lights_generate, lights_value
-from ray_tracing_tpu_torch.ops.textures import texture_value
+from ray_tracing_tpu_torch.ops.textures import image_texel_index, texture_value
 
 # uniform column layout for one bounce's scatter block
 U_COS_1 = 0  # cosine-pdf generate r1 (reference cosine.rs:39)
@@ -62,11 +64,44 @@ def _emitted_given_tex(scene: SceneData, hit: Hit, tex):
     return torch.where(is_light[..., None], tex, 0.0)
 
 
-def shade(scene: SceneData, hit: Hit, rd_in, u):
+class ShadeAux(NamedTuple):
+    """Per-ray shading facts for path-replay backpropagation
+    (render/prb_tape.py): which color-table entry fed this bounce."""
+
+    leaf_tex: torch.Tensor  # (N,) i64 resolved texture leaf id
+    leaf_is_solid: torch.Tensor  # (N,) bool, the leaf reads textures.color
+    tex_value: torch.Tensor  # (N, 3) the evaluated texture color
+    leaf_is_image: torch.Tensor  # (N,) bool, the leaf reads textures.images
+    texel: torch.Tensor  # (N,) i32 flat atlas index (img*Hmax + j)*Wmax + i
+
+
+def shade(scene: SceneData, hit: Hit, rd_in, u, with_aux: bool = False):
     """Fused emission + scatter: the hit's material texture is evaluated
-    once for both.  Returns (emitted (N, 3), Scatter)."""
-    tex = texture_value(scene.textures, scene.materials.tex[hit.material], hit.uv, hit.p)
-    return _emitted_given_tex(scene, hit, tex), _scatter_given_tex(scene, hit, rd_in, u, tex)
+    once for both.  Returns (emitted (N, 3), Scatter[, ShadeAux])."""
+    tt = scene.textures
+    tex, leaf = texture_value(tt, scene.materials.tex[hit.material], hit.uv, hit.p,
+                              with_leaf=True)
+    out = _emitted_given_tex(scene, hit, tex), _scatter_given_tex(scene, hit, rd_in, u, tex)
+    if not with_aux:
+        return out
+    ttype = tt.ttype[leaf]
+    if tt.images.shape[0] > 0:
+        leaf_is_image = ttype == TEX_IMAGE
+        img = tt.image[leaf]
+        j, i = image_texel_index(tt, img, hit.uv)
+        hmax, wmax = tt.images.shape[1], tt.images.shape[2]
+        texel = (img * hmax + j) * wmax + i
+    else:
+        leaf_is_image = torch.zeros_like(ttype, dtype=torch.bool)
+        texel = torch.zeros_like(ttype)
+    aux = ShadeAux(
+        leaf_tex=leaf,
+        leaf_is_solid=ttype == TEX_SOLID,
+        tex_value=tex,
+        leaf_is_image=leaf_is_image,
+        texel=texel,
+    )
+    return out + (aux,)
 
 
 def scatter(scene: SceneData, hit: Hit, rd_in, u) -> Scatter:

@@ -111,8 +111,10 @@ def resolve_leaf(tt: TextureTable, idx, p):
     return idx
 
 
-def texture_value(tt: TextureTable, idx, uv, p):
-    """Colors of textures ``idx`` (N,) at (uv (N, 2), p (N, 3)): (N, 3)."""
+def texture_value(tt: TextureTable, idx, uv, p, *, with_leaf: bool = False):
+    """Colors of textures ``idx`` (N,) at (uv (N, 2), p (N, 3)): (N, 3),
+    or ``(color, resolved leaf)`` with ``with_leaf``, so that a caller
+    that also needs the leaf walks the checker chain once."""
     idx = resolve_leaf(tt, idx.long(), p)
     ttype = tt.ttype[idx]
     out = tt.color[idx]  # TEX_SOLID (reference solid_color.rs:21-28)
@@ -133,4 +135,4 @@ def texture_value(tt: TextureTable, idx, uv, p):
             )
             # white * turb (reference noise.rs:160-171)
             out[sel] = turb[:, None].expand(-1, 3)
-    return out
+    return (out, idx) if with_leaf else out

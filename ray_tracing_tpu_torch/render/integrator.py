@@ -22,10 +22,17 @@ from ray_tracing_tpu_torch.ops.intersect import intersect_scene
 from ray_tracing_tpu_torch.ops.materials import N_SCATTER_U, shade
 from ray_tracing_tpu_torch.ops.rng import ray_uniforms
 
+STAGE_BOUNCES = 4  # bounces per lead compaction stage
 
-def _bounce(scene: SceneData, key, bounce: int, carry, count_segments: bool = True):
+
+def _bounce(scene: SceneData, key, bounce: int, carry, count_segments: bool = True,
+            tape=None):
     """One wavefront bounce: intersect, emit/background, scatter.
-    carry = (rad, thr, ro, rd, alive, ids, segments)."""
+    carry = (rad, thr, ro, rd, alive, ids, segments).  ``tape``, when
+    given, also takes the bounce's PRB tape rows: it is called as
+    ``tape.write(bounce, hit, aux, found, new_alive, thr, rad, ids)``
+    with the shading aux, the throughput entering the bounce and the
+    radiance after its emission (render/prb_tape.py)."""
     rad, thr, ro, rd, alive, ids, segments = carry
     if count_segments:
         segments = segments + alive.sum()
@@ -35,9 +42,14 @@ def _bounce(scene: SceneData, key, bounce: int, carry, count_segments: bool = Tr
     miss = alive & ~hit.mask
 
     rad = rad + torch.where(miss[:, None], thr * scene.background[None, :], 0.0)
-    em, sc = shade(scene, hit, rd, u)
+    if tape is None:
+        em, sc = shade(scene, hit, rd, u)
+    else:
+        em, sc, aux = shade(scene, hit, rd, u, with_aux=True)
     rad = rad + torch.where(found[:, None], thr * em, 0.0)
     new_alive = found & sc.scattered
+    if tape is not None:
+        tape.write(bounce, hit, aux, found, new_alive, thr, rad, ids)
     thr = torch.where(new_alive[:, None], thr * sc.coef, thr)
     ro = torch.where(found[:, None], hit.p, ro)
     rd = torch.where(new_alive[:, None], sc.direction, rd)
@@ -96,7 +108,7 @@ def unsort_wavefront(pos, fmats, ivecs):
     )
 
 
-def stage_schedule(max_depth: int, stage_bounces: int) -> list:
+def stage_schedule(max_depth: int, stage_bounces: int = STAGE_BOUNCES) -> list:
     """Bounce counts per compaction stage: two ``stage_bounces``-wide
     lead stages, then all remaining bounces as one tail stage (after two
     sorts the wavefront is nearly dead).  The gradient replay must walk
@@ -121,44 +133,87 @@ def bounded_bounce_loop(bounces: int, body, carry, alive_of):
     return carry
 
 
-def trace_compacted(scene: SceneData, ro, rd, key, max_depth: int, *,
-                    stage_bounces: int = 4, with_stats: bool = False,
-                    ids_base: int = 0):
-    """Forward trace with staged wavefront compaction.
+def run_stage(bounce_fn, bounces: int, carry, live: int):
+    """Bounce the live prefix ``[:live]`` of an alive-first wavefront for
+    one stage and write it back into the full-width state.
 
-    Before every stage after the first, the wavefront is sorted
-    alive-first (the permutation is tracked by the ray ids) and the
-    stage bounces only the live prefix; radiance is unsorted once at the
-    end.  Because uniforms are keyed by (ray id, global bounce), the
-    result is bit-identical to :func:`trace` with the same key."""
-    carry = _initial_carry(ro, rd, ids_base)
+    ``carry`` holds per-ray tensors (leading dim n) with ``alive`` at
+    index 4, and 0-d tensors, which pass through whole;
+    ``bounce_fn(b, part)`` bounces the prefix at the stage's bounce b.
+    Returns the updated carry."""
+    part = tuple(x[:live] if x.dim() else x for x in carry)
+    out = bounded_bounce_loop(bounces, bounce_fn, part, lambda c: c[4])
+    for full, before, after in zip(carry, part, out):
+        if full.dim() and after is not before:
+            full[:live] = after
+    return tuple(full if full.dim() else after for full, after in zip(carry, out))
+
+
+def trace_stages(scene: SceneData, key, max_depth: int, carry, *, count_segments: bool,
+                 tape=None):
+    """Bounce ``carry`` through :func:`stage_schedule` with wavefront
+    compaction, the one stage walker of every compacted trace.
+
+    The first stage runs full width (everything is alive anyway).  Before
+    every later stage the wavefront is sorted alive-first and the stage
+    bounces only the live prefix.  Returns ``(carry, pos)``, with
+    ``pos`` each sorted ray's input position.  ``tape``, when given, is
+    told each stage's layout as ``tape.start_stage(pos, live)`` and
+    takes every bounce's rows (see :func:`_bounce`)."""
+    n = carry[0].shape[0]
+    pos = torch.arange(n, dtype=torch.int64, device=carry[0].device)
     offset = 0
-    for stage, bounces in enumerate(stage_schedule(max_depth, stage_bounces)):
-        if stage == 0:
-            # full-width warm stage (everything is alive anyway)
-            for b in range(bounces):
-                carry = _bounce(scene, key, b, carry, count_segments=with_stats)
-            offset += bounces
-            continue
-        rad, thr, ro, rd, alive, ids, segments = carry
-        alive, (rad, thr, ro, rd), (ids,) = compact_wavefront(alive, [rad, thr, ro, rd], [ids])
-        live = int(alive.sum())
+    for stage, bounces in enumerate(stage_schedule(max_depth)):
 
         def body(b, c, _offset=offset):
-            return _bounce(scene, key, _offset + b, c, count_segments=with_stats)
+            return _bounce(scene, key, _offset + b, c, count_segments, tape)
 
-        out = bounded_bounce_loop(
-            bounces, body,
-            (rad[:live], thr[:live], ro[:live], rd[:live], alive[:live], ids[:live], segments),
-            lambda c: c[4],
-        )
-        for full, part in zip((rad, thr, ro, rd, alive), out[:5]):
-            full[:live] = part
-        carry = (rad, thr, ro, rd, alive, ids, out[6])
+        if stage == 0:
+            if tape is not None:
+                tape.start_stage(pos, n)
+            for b in range(bounces):
+                carry = body(b, carry)
+        else:
+            rad, thr, ro, rd, alive, ids, segments = carry
+            alive, (rad, thr, ro, rd), (ids, pos) = compact_wavefront(
+                alive, [rad, thr, ro, rd], [ids, pos]
+            )
+            live = int(alive.sum())
+            if tape is not None:
+                tape.start_stage(pos, live)
+            carry = run_stage(body, bounces, (rad, thr, ro, rd, alive, ids, segments), live)
         offset += bounces
+    return carry, pos
 
-    rad, thr, _, _, alive, ids, segments = carry
+
+def trace_subset_dot(scene: SceneData, ro, rd, key, max_depth: int, g, alive0, ids0):
+    """``vdot(g, radiance)`` of a gathered ray subset, compacted.
+
+    The scalar-tangent pass (render/prb_scalar.py) needs the tangent of
+    this one scalar only, so this is the minimal compacted trace
+    (:func:`trace_stages`), with uniforms keyed by the absolute ``ids0``
+    so the gathered subset replays its paths bit-exactly.  Rays with
+    ``alive0`` unset accumulate nothing.  The final dot
+    gathers ``g`` by each ray's tracked input position.  Every operation
+    takes forward-mode tangents (``torch.autograd.forward_ad``)."""
+    rad, thr, ro, rd, _, _, segments = _initial_carry(ro, rd, 0)
+    carry = (rad, thr, ro, rd, alive0, ids0.to(torch.int64), segments)
+    (rad, thr, _, _, alive, _, _), pos = trace_stages(
+        scene, key, max_depth, carry, count_segments=False
+    )
     rad = _finish(scene, rad, thr, alive)
-    # unsort: sorted position i belongs to ray ids[i] - ids_base
-    (rad,), _ = unsort_wavefront(ids - ids_base, [rad], [])
+    return (g[pos] * rad).sum()
+
+
+def trace_compacted(scene: SceneData, ro, rd, key, max_depth: int, *,
+                    with_stats: bool = False, ids_base: int = 0, tape=None):
+    """Forward trace with staged wavefront compaction (:func:`trace_stages`);
+    radiance is unsorted once at the end.  Because uniforms are keyed by
+    (ray id, global bounce), the result is bit-identical to :func:`trace`
+    with the same key.  ``tape`` is render/prb_tape.py's tape writer."""
+    carry, pos = trace_stages(scene, key, max_depth, _initial_carry(ro, rd, ids_base),
+                              count_segments=with_stats, tape=tape)
+    rad, thr, _, _, alive, _, segments = carry
+    rad = _finish(scene, rad, thr, alive)
+    (rad,), _ = unsort_wavefront(pos, [rad], [])
     return (rad, segments) if with_stats else rad
