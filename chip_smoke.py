@@ -4,8 +4,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
   1. build the kernels with nvcc for sm_90a, one nvcc per source, in
-     parallel: K1 phase A (csrc/intersect.cu) and K2 scatter-add
-     (csrc/scatter.cu);
+     parallel: K1 and K3 phase A (csrc/intersect.cu), K2 scatter-add
+     (csrc/scatter.cu) and K5 triangle sweep (csrc/triangles.cu);
   2. K1 against its plain PyTorch version on the card, for the 1024x1024
      zy camera rays and 65,536 random rays (numpy seed 0): hit/miss,
      kind and index equal, t to rtol 1e-5;
@@ -36,10 +36,28 @@ Phases (any failure raises and exits non-zero):
      and rays/s, split into taped forward, sweep and tangent pass; the
      device's busy share over one tile's fwd+bwd; K2 against its plain
      version on one zy tile's sweep rows.
-The last lines are a JSON kernel record (K1 once per path, with the
+  9. K3 (the transformed phase A, csrc/intersect.cu) against its plain
+     version on the card, for the 800x800 camera rays of data/scene.json
+     and 65,536 random rays in its box (numpy seed 0): hit/miss, kind
+     and index equal, t to rtol 1e-5, winners on the rotated cuboid;
+ 10. K5 (the triangle sweep, csrc/triangles.cu) against its chunked plain
+     version on the same camera rays and 65,536 rays aimed at the bunny:
+     hit/miss and index equal, t equal or to rtol 1e-6, > 1 % of the
+     rays on the mesh;
+ 11. the second main path: load data/scene.json, Renderer(800x800,
+     max_depth=50, device="cuda"), render(k) for k = 0..2 -- finite,
+     non-negative images with a mean in 0.55-0.65 (JAX CPU renders give
+     0.58-0.61, PERF.md), render(0) deterministic, K3 and K5 launched;
+ 12. at 128x128 depth 50, compacted equals dense, and a 32x32 depth-1
+     image on the card equals the port's CPU render;
+ 13. timings: ms per 800x800 depth-50 pass, segments per second, K3 and
+     K5 against their plain versions on a 65,536-ray tile (CUDA events
+     and torch.profiler device time), the device's busy share over a
+     profiled 128x128 depth-50 pass.
+The last lines are a JSON kernel record (K1 once per zy path, with the
 launches of the forward render of phase 3 and of the fwd+bwd of phase
-7, and K2 with those of phase 7), the card's name and power limit, and
-a JSON device record.
+7, K2 with those of phase 7, and K3 and K5 with those of phase 11), the
+card's name and power limit, and a JSON device record.
 """
 
 from __future__ import annotations
@@ -53,11 +71,22 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SIZE, DEPTH, TILE = 1024, 20, 65536  # zy at full size, as bench.py measures it
+SJ_SIZE, SJ_DEPTH = 800, 50  # data/scene.json at its own settings
+SJ_MEAN = (0.55, 0.65)  # per-pass image mean at 800^2 (JAX CPU renders: 0.58-0.61)
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0, just before a path runs."""
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import cuda_scatter as cs
+    from ray_tracing_tpu_torch.ops import cuda_triangles as ct
+
+    ci.LAUNCHES = ci.TF_LAUNCHES = cs.LAUNCHES = ct.LAUNCHES = 0
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -98,8 +127,21 @@ def profile_device(fn):
     return wall_ms, kernels
 
 
+def profile_pair(kernel_fn, plain_fn, calls: int, kernel_name: str):
+    """Device ms per call of a kernel and of its plain version from one
+    torch.profiler session that alternates them (a session of the
+    ctypes-launched kernel alone has come back empty): events whose name
+    holds ``kernel_name`` are the kernel's, all others the plain
+    version's.  "not measured" where the profiler saw none."""
+    _, kernels = profile_device(lambda: [(kernel_fn(), plain_fn()) for _ in range(calls)])
+    mine = [ms for name, (_, ms) in kernels.items() if kernel_name in name]
+    rest = [ms for name, (_, ms) in kernels.items() if kernel_name not in name]
+    per_call = lambda ms: sum(ms) / calls if ms else "not measured"
+    return per_call(mine), per_call(rest)
+
+
 def interior_rays(n: int, seed: int):
-    """Secondary-bounce-like rays for zy: origins inside the box,
+    """Secondary-bounce-like rays for zy and scene.json: origins inside the box,
     isotropic directions (numpy, seeded)."""
     import numpy as np
     import torch
@@ -287,7 +329,7 @@ def gradient_phases(scene, bundle, smi: str) -> dict:
 
     # 7. the gradient path at full size
     params = params_of(scene)
-    ci.LAUNCHES = cs.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     loss, grads = grad_pass(params, scene, ro, rd, k_trace, lambda rad, rows: torch.sum(rad))
     torch.cuda.synchronize()
@@ -412,6 +454,208 @@ def gradient_phases(scene, bundle, smi: str) -> dict:
     return dict(launches, k2_err=k2_err, k2_ms=sum(kernel_ms) / 2, k2_plain_ms=sum(plain_ms) / 2)
 
 
+def bunny_rays(n: int, seed: int):
+    """Rays from inside the box aimed at scene.json's bunny (x 250-360,
+    y 30-190, z 140-270 after its transform), numpy seeded."""
+    import numpy as np
+    import torch
+
+    r = np.random.RandomState(seed)
+    ro = r.uniform(20.0, 535.0, (n, 3)).astype(np.float32)
+    target = r.uniform([250, 30, 140], [360, 190, 270], (n, 3)).astype(np.float32)
+    rd = target - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    return torch.from_numpy(ro).cuda(), torch.from_numpy(rd).cuda()
+
+
+def compare_k3(ci, sph, rect, ro, rd, what: str) -> float:
+    """K3 against phase_a_plain (in 65,536-ray slices) on the same card
+    tensors; returns the largest |dt| over hit rays."""
+    import torch
+
+    before = ci.TF_LAUNCHES
+    t, kind, idx = ci.phase_a_cuda(sph, rect, ro, rd, 1e-3, float("inf"))
+    torch.cuda.synchronize()
+    check(ci.TF_LAUNCHES == before + 1, "the transformed tables launched K3")
+    plain = [ci.phase_a_plain(sph, rect, ro[s:s + TILE], rd[s:s + TILE], 1e-3, float("inf"))
+             for s in range(0, ro.shape[0], TILE)]
+    pt, pkind, pidx = (torch.cat(x) for x in zip(*plain))
+    found, pfound = kind >= 0, pkind >= 0
+    both = found & pfound
+    n_t = int((~torch.isclose(t[both], pt[both], rtol=1e-5, atol=0.0)).sum())
+    err = float((t[both] - pt[both]).abs().max()) if bool(both.any()) else 0.0
+    on_cuboid = int(((kind == 2) & (idx < 6)).sum())
+    print(f"[9] K3 vs plain, {what}: {ro.shape[0]} rays, {int(found.sum())} hits, {on_cuboid} on "
+          f"the rotated cuboid; mismatches found={int((found != pfound).sum())} "
+          f"kind={int((kind != pkind).sum())} idx={int((idx != pidx).sum())} t(rtol 1e-5)={n_t}; "
+          f"max |dt| = {err!r}; t bit-equal {torch.equal(t, pt)}")
+    check(torch.equal(kind, pkind) and torch.equal(idx, pidx) and n_t == 0,
+          f"K3 disagrees with its plain version on {what}")
+    check(on_cuboid > 0, f"K3 winners include the transformed rects on {what}")
+    return err
+
+
+def compare_k5(ct, tri, origin, ro, rd, what: str) -> float:
+    """K5 against triangle_sweep_plain (in 65,536-ray slices); returns
+    the largest |dt| over hit rays."""
+    import torch
+
+    before = ct.LAUNCHES
+    t, idx, found = ct.triangle_sweep_cuda(tri, origin, ro, rd, 1e-3, float("inf"))
+    torch.cuda.synchronize()
+    check(ct.LAUNCHES == before + 1, "K5 launched")
+    plain = [ct.triangle_sweep_plain(tri, origin, ro[s:s + TILE], rd[s:s + TILE], 1e-3,
+                                     float("inf"))
+             for s in range(0, ro.shape[0], TILE)]
+    pt, pidx, pfound = (torch.cat(x) for x in zip(*plain))
+    both = found & pfound
+    n_t = int((~torch.isclose(t[both], pt[both], rtol=1e-6, atol=0.0)).sum())
+    err = float((t[both] - pt[both]).abs().max()) if bool(both.any()) else 0.0
+    share = float(found.float().mean())
+    print(f"[10] K5 vs plain, {what}: {ro.shape[0]} rays, {int(found.sum())} on the mesh "
+          f"({share:.4f}); mismatches found={int((found != pfound).sum())} "
+          f"idx={int((idx[both] != pidx[both]).sum())} t(rtol 1e-6)={n_t}; max |dt| = {err!r}; "
+          f"t bit-equal on hits {torch.equal(t[both], pt[both])}")
+    check(torch.equal(found, pfound) and torch.equal(idx[both], pidx[both]) and n_t == 0,
+          f"K5 disagrees with its plain version on {what}")
+    check(share > 0.01, f"more than 1 % of the rays hit the mesh on {what}")
+    return err
+
+
+def scene_json_phases(smi: str) -> dict:
+    """Phases 9-13 on the card: K3 and K5 against their plain versions,
+    the forward render of data/scene.json at 800^2 depth 50, its checks
+    and timings.  Returns the numbers the kernel record needs."""
+    import torch
+    from ray_tracing_tpu_torch import Renderer, RendererParam, load_scene_json
+    from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import cuda_triangles as ct
+    from ray_tracing_tpu_torch.ops import rng
+
+    dev = torch.device("cuda")
+    bundle = load_scene_json(os.path.join(ROOT, "data", "scene.json"))
+    check((bundle.renderer.width, bundle.renderer.height, bundle.renderer.max_depth)
+          == (SJ_SIZE, SJ_SIZE, SJ_DEPTH), "scene.json's own settings are 800^2 depth 50")
+    scene = bundle.scene.to(dev)
+    print(f"[9] scene.json: {scene.n_triangles} triangles, {scene.n_rects} rects "
+          f"(transformed: {scene.rects.has_transforms}), {scene.n_spheres} spheres, "
+          f"{scene.n_medium} medium")
+
+    # 9. K3 against its plain version
+    sph, rect = ci.pack_primitive_tables(scene)
+    cam = Camera.build(bundle.camera, 1.0).to(dev)
+    ro, rd, _, _ = camera_rays(cam, rng.key(0), SJ_SIZE, SJ_SIZE)
+    ro, rd = ro.contiguous(), rd.contiguous()
+    k3_err = compare_k3(ci, sph, rect, ro, rd, f"{SJ_SIZE}^2 scene.json camera rays")
+    box_ro, box_rd = interior_rays(TILE, 0)  # scene.json's box is zy's
+    k3_err = max(k3_err, compare_k3(ci, sph, rect, box_ro, box_rd, f"{TILE} random rays (seed 0)"))
+
+    # 10. K5 against its plain version
+    tr = scene.triangles
+    tri = ct.pack_triangle_table(tr)
+    k5_err = compare_k5(ct, tri, tr.sw_origin, ro, rd, f"{SJ_SIZE}^2 scene.json camera rays")
+    b_ro, b_rd = bunny_rays(TILE, 0)
+    k5_err = max(k5_err, compare_k5(ct, tri, tr.sw_origin, b_ro, b_rd,
+                                    f"{TILE} rays aimed at the bunny (seed 0)"))
+
+    # 11. the main path
+    renderer = Renderer(RendererParam(SJ_SIZE, SJ_SIZE, max_depth=SJ_DEPTH), bundle.camera,
+                        bundle.scene, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    images = [renderer.render(k) for k in range(3)]
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {"k1": ci.LAUNCHES, "k3": ci.TF_LAUNCHES, "k5": ct.LAUNCHES}
+    print(f"[11] rendered 3 passes of scene.json at {SJ_SIZE}^2 depth {SJ_DEPTH} (tile "
+          f"{renderer.tile_size}) in {main_s:.2f} s; K1 launches {ci.LAUNCHES}, K3 launches "
+          f"{ci.TF_LAUNCHES}, K5 launches {ct.LAUNCHES}")
+    check(ci.TF_LAUNCHES > 0 and ct.LAUNCHES > 0, "the scene.json path launched K3 and K5")
+    for k, img in enumerate(images):
+        mean = float(img.double().mean())
+        print(f"[11] pass {k}: mean {mean!r} max {float(img.max())!r}")
+        check(img.shape == (SJ_SIZE, SJ_SIZE, 3) and img.device.type == "cuda",
+              f"scene.json pass {k} shape/device")
+        check(bool(torch.isfinite(img).all()) and bool((img >= 0).all()),
+              f"scene.json pass {k} finite, >= 0")
+        check(SJ_MEAN[0] < mean < SJ_MEAN[1], f"scene.json pass {k} mean {mean} in {SJ_MEAN}")
+    check(torch.equal(images[0], renderer.render(0)), "scene.json render(0) twice is equal")
+    print("[11] render(0) repeated: torch.equal")
+
+    # 12. compaction equals the dense loop; the card agrees with the CPU
+    small = RendererParam(128, 128, max_depth=SJ_DEPTH)
+    small_renderer = Renderer(small, bundle.camera, bundle.scene, device="cuda")
+    img_c, seg_c = small_renderer.render_with_stats(7)
+    img_d, seg_d = Renderer(small, bundle.camera, bundle.scene, device="cuda",
+                            compaction=False).render_with_stats(7)
+    check(torch.equal(img_c, img_d) and seg_c == seg_d, "scene.json compacted equals dense")
+    print(f"[12] 128^2 depth {SJ_DEPTH}: compacted == dense (torch.equal), {seg_c} segments each")
+    tiny = RendererParam(32, 32, max_depth=1)
+    on_card = Renderer(tiny, bundle.camera, bundle.scene, device="cuda").render(0).cpu()
+    on_cpu = Renderer(tiny, bundle.camera, bundle.scene, device="cpu").render(0)
+    share = float((on_card == on_cpu).all(dim=-1).float().mean())
+    print(f"[12] 32^2 depth 1: {share:.6f} of pixels equal to the CPU render")
+    check(torch.equal(on_card, on_cpu),
+          "scene.json depth-1 image on the card equals the CPU render")
+
+    # 13. timings
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    pass_ms = []
+    for key in (10, 11):
+        start.record()
+        renderer.render(key)
+        end.record()
+        torch.cuda.synchronize()
+        pass_ms.append(start.elapsed_time(end))
+    start.record()
+    _, segments = renderer.render_with_stats(20)
+    end.record()
+    torch.cuda.synchronize()
+    stats_s = start.elapsed_time(end) / 1e3
+    saved = (ci.LAUNCHES, ci.TF_LAUNCHES, ct.LAUNCHES)
+    k3_args = (sph, rect, box_ro, box_rd, 1e-3, float("inf"))
+    k5_args = (tri, tr.sw_origin, b_ro, b_rd, 1e-3, float("inf"))
+    k3_plain = [cuda_ms(lambda: ci.phase_a_plain(*k3_args), 20)]
+    k3_kernel = [cuda_ms(lambda: ci.phase_a_cuda(*k3_args), 100) for _ in range(2)]
+    k3_plain.append(cuda_ms(lambda: ci.phase_a_plain(*k3_args), 20))
+    k5_plain = [cuda_ms(lambda: ct.triangle_sweep_plain(*k5_args), 3)]
+    k5_kernel = [cuda_ms(lambda: ct.triangle_sweep_cuda(*k5_args), 10) for _ in range(2)]
+    k5_plain.append(cuda_ms(lambda: ct.triangle_sweep_plain(*k5_args), 3))
+    small_renderer.render(30)
+    pass_wall, pass_dev = profile_device(lambda: small_renderer.render(31))
+    dev_ms = dict(zip(("k3", "k3_plain"), profile_pair(
+        lambda: ci.phase_a_cuda(*k3_args), lambda: ci.phase_a_plain(*k3_args), 10,
+        "phase_a_kernel")))
+    dev_ms.update(zip(("k5", "k5_plain"), profile_pair(
+        lambda: ct.triangle_sweep_cuda(*k5_args), lambda: ct.triangle_sweep_plain(*k5_args), 3,
+        "triangle_sweep_kernel")))
+    ci.LAUNCHES, ci.TF_LAUNCHES, ct.LAUNCHES = saved
+    print(f"[13] card: {smi}")
+    print(f"[13] ms per {SJ_SIZE}^2 depth-{SJ_DEPTH} scene.json pass: {pass_ms!r} "
+          f"(mean {sum(pass_ms) / len(pass_ms)!r})")
+    print(f"[13] render_with_stats: {segments} segments in {stats_s!r} s = "
+          f"{segments / stats_s!r} segments/s")
+    print(f"[13] K3 on a {TILE}-ray tile: kernel {k3_kernel!r} ms, plain {k3_plain!r} ms "
+          f"(plain, kernel, kernel, plain)")
+    print(f"[13] K5 on a {TILE}-ray tile ({scene.n_triangles} triangles): kernel {k5_kernel!r} "
+          f"ms, plain {k5_plain!r} ms (plain, kernel, kernel, plain)")
+    print(f"[13] device ms per call (torch.profiler; 'not measured' where it saw no device "
+          f"time): {dev_ms!r}")
+    if pass_dev:
+        busy = sum(ms for _, ms in pass_dev.values())
+        print(f"[13] profiled 128^2 depth-{SJ_DEPTH} scene.json pass: wall {pass_wall!r} ms, "
+              f"device busy {busy!r} ms ({busy / pass_wall!r} of wall), "
+              f"{sum(n for n, _ in pass_dev.values())} device kernels")
+        for name, (n, ms) in sorted(pass_dev.items(), key=lambda kv: -kv[1][1])[:8]:
+            print(f"[13]   {ms!r} ms in {n} launches: {name[:90]}")
+    else:
+        print("[13] torch.profiler saw no device time in the 128^2 pass: busy share not measured")
+    return dict(launches=launches, k3_err=k3_err, k5_err=k5_err,
+                k3_ms=sum(k3_kernel) / 2, k3_plain_ms=sum(k3_plain) / 2,
+                k5_ms=sum(k5_kernel) / 2, k5_plain_ms=sum(k5_plain) / 2)
+
+
 def main() -> int:
     import torch
 
@@ -425,6 +669,7 @@ def main() -> int:
     from ray_tracing_tpu_torch.ops import _build
     from ray_tracing_tpu_torch.ops import cuda_intersect as ci
     from ray_tracing_tpu_torch.ops import cuda_scatter as cs
+    from ray_tracing_tpu_torch.ops import cuda_triangles as ct
     from ray_tracing_tpu_torch.ops import rng
 
     dev = torch.device("cuda")
@@ -434,10 +679,10 @@ def main() -> int:
     bundle = load_scene_json(os.path.join(ROOT, "data", "zy_scene.json"))
     scene = bundle.scene.to(dev)
 
-    # 1. build K1 and K2, one nvcc each, in parallel
+    # 1. build K1/K3, K2 and K5, one nvcc per source, in parallel
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(_build.build, [ci.SOURCE, cs.SOURCE]))
+    with ThreadPoolExecutor(3) as pool:
+        libs = list(pool.map(_build.build, [ci.SOURCE, cs.SOURCE, ct.SOURCE]))
     print(f"[1] built {', '.join(os.path.relpath(lib, ROOT) for lib in libs)} "
           f"in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
@@ -456,7 +701,7 @@ def main() -> int:
     # 3. the main path
     param = RendererParam(1024, 1024, max_depth=20)
     renderer = Renderer(param, bundle.camera, bundle.scene, device="cuda")
-    ci.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     images = [renderer.render(k) for k in range(4)]
     torch.cuda.synchronize()
@@ -540,6 +785,7 @@ def main() -> int:
         print("[5] torch.profiler saw no device time: device share not measured")
 
     grad = gradient_phases(scene, bundle, smi)
+    sj = scene_json_phases(smi)
 
     # one K1 entry per path, each with the count of its own run
     k1 = {
@@ -564,6 +810,26 @@ def main() -> int:
         {"name": "phase_a (K1), forward render", **k1, "launches": launches},
         {"name": "phase_a (K1), fwd+bwd", **k1, "launches": grad["k1_launches"]},
         k2,
+        {
+            "name": "phase_a transformed (K3), scene.json forward render",
+            "route": "cuda",
+            "source": "ray_tracing_tpu_torch/csrc/intersect.cu",
+            "replaces": "ray_tracing_tpu/ops/pallas_intersect.py:116",
+            "launches": sj["launches"]["k3"],
+            "max_abs_err": sj["k3_err"],
+            "ms": sj["k3_ms"],
+            "plain_ms": sj["k3_plain_ms"],
+        },
+        {
+            "name": "triangle_sweep (K5), scene.json forward render",
+            "route": "cuda",
+            "source": "ray_tracing_tpu_torch/csrc/triangles.cu",
+            "replaces": "ray_tracing_tpu/ops/pallas_triangles.py:147",
+            "launches": sj["launches"]["k5"],
+            "max_abs_err": sj["k5_err"],
+            "ms": sj["k5_ms"],
+            "plain_ms": sj["k5_plain_ms"],
+        },
     ]}
     print(json.dumps(record))
     print(smi)

@@ -2,13 +2,15 @@
 
 Loads the same reference-schema JSON scenes and renders them with the
 same estimator and the same per-ray counter-hash randomness, on a CPU
-tensor device or on an NVIDIA GPU, where the phase-A intersection
-(ops/cuda_intersect.py) and the atlas-gradient scatter-add
-(ops/cuda_scatter.py) run as hand-written CUDA kernels.  The port covers
-the forward render of sphere and axis-aligned-rect scenes and their
-full-parameter gradient pass (render/prb_scalar.py:
-``params_of`` -> ``prb_loss_and_grad_all`` -> ``scalar_tangent_pass``);
-see ROADMAP.md for what is still to come.
+tensor device or on an NVIDIA GPU, where the phase-A intersection of
+spheres and rects, plain or transformed (ops/cuda_intersect.py), the
+triangle sweep (ops/cuda_triangles.py) and the atlas-gradient
+scatter-add (ops/cuda_scatter.py) run as hand-written CUDA kernels.  The
+port covers the forward render of scenes of spheres, rects, triangle
+meshes, instancing transforms and constant media, and the
+full-parameter gradient pass (render/prb_scalar.py: ``params_of`` ->
+``prb_loss_and_grad_all`` -> ``scalar_tangent_pass``) of sphere and
+rect scenes; see ROADMAP.md for what is still to come.
 """
 
 from ray_tracing_tpu_torch.models.camera import Camera, CameraParam

@@ -4,11 +4,15 @@ tables, the PyTorch counterpart of ``ray_tracing_tpu/models/compiler.py``
 
 Host numpy code, copied from the JAX package so that the tables come
 out identical, including the per-texture noise offsets drawn from the
-builder's ``RandomState``.  Supported: shapes sphere, xy-rect, yz-rect,
-zx-rect and cuboid; textures solid-color, checker, image and noise;
-materials lambertian, metal, dielectric and diffuse-light; ``important``
-lights.  Triangles, meshes, constant media, transforms, moving spheres
-and the isotropic material raise ``NotImplementedError``.
+builder's ``RandomState`` and the Morton order of the triangle table.
+Supported: shapes sphere, xy-rect, yz-rect, zx-rect, cuboid, triangle,
+mesh and constant-medium (over a sphere, rect, cuboid, triangle or
+mesh), each with an optional ``transform`` / ``translate``; textures
+solid-color, checker, image and noise; materials lambertian, metal,
+dielectric, diffuse-light and isotropic; ``important`` lights.  Sphere
+and rect transforms go to an instancing table; triangle transforms are
+baked into the vertices.  Moving spheres, and meshes above
+``ops.intersect.SWEEP_MAX_TRIS`` triangles, raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,17 +20,20 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Dict, List, Sequence, Set, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 import torch
 
 from ray_tracing_tpu_torch.models.camera import CameraParam
+from ray_tracing_tpu_torch.models.mesh import load_triangles
 from ray_tracing_tpu_torch.models.scene import (
     LIGHT_RECT,
     LIGHT_SPHERE,
+    LIGHT_TRIANGLE,
     MAT_DIELECTRIC,
     MAT_DIFFUSE_LIGHT,
+    MAT_ISOTROPIC,
     MAT_LAMBERTIAN,
     MAT_METAL,
     TEX_CHECKER,
@@ -35,16 +42,22 @@ from ray_tracing_tpu_torch.models.scene import (
     TEX_SOLID,
     LightTable,
     MaterialTable,
+    MediumTable,
     RectTable,
     SceneData,
     SphereTable,
     TextureTable,
-    empty_triangle_table,
+    TriangleTable,
     identity_transform_table,
+    make_medium_boundary,
+    pack_triangle_sweep,
 )
+from ray_tracing_tpu_torch.ops.intersect import SWEEP_MAX_TRIS
 from ray_tracing_tpu_torch.render.renderer import RendererParam
 
 RECT_AXIS_BY_NAME = {"xy": 0, "yz": 1, "zx": 2}
+
+Transform = Tuple[np.ndarray, np.ndarray]  # (3x3, translate)
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -64,6 +77,31 @@ def _cuboid_faces(p0, p1):
         (2, float(p0[2]), float(p1[2]), float(p0[0]), float(p1[0]), float(p0[1]), False),
         (2, float(p0[2]), float(p1[2]), float(p0[0]), float(p1[0]), float(p1[1]), True),
     ]
+
+
+def _morton3(x: np.ndarray) -> np.ndarray:
+    """Interleave 10-bit coordinates of points in [0, 1]^3 into 30-bit
+    Morton codes (ray_tracing_tpu/ops/bvh.py:_morton3)."""
+
+    def expand(v):
+        v = v.astype(np.uint64)
+        v = (v | (v << 16)) & np.uint64(0x030000FF)
+        v = (v | (v << 8)) & np.uint64(0x0300F00F)
+        v = (v | (v << 4)) & np.uint64(0x030C30C3)
+        v = (v | (v << 2)) & np.uint64(0x09249249)
+        return v
+
+    q = np.clip((x * 1024.0), 0, 1023).astype(np.uint32)
+    return (expand(q[:, 0]) << np.uint64(2)) | (expand(q[:, 1]) << np.uint64(1)) | expand(q[:, 2])
+
+
+def morton_order(tri_min: np.ndarray, tri_max: np.ndarray) -> np.ndarray:
+    """Stable Morton-sort permutation of triangles by AABB centroid."""
+    centroid = (tri_min + tri_max) * 0.5
+    lo = centroid.min(axis=0)
+    hi = centroid.max(axis=0)
+    norm = (centroid - lo) / np.maximum(hi - lo, 1e-30)
+    return np.argsort(_morton3(norm), kind="stable").astype(np.int32)
 
 
 def load_image(path: str) -> np.ndarray:
@@ -88,6 +126,8 @@ class SceneBuilder:
     ``Scene::add_important`` (reference scene.rs:38-61), finalized by
     :meth:`build` into a :class:`SceneData` on the CPU."""
 
+    BVH_THRESHOLD = 16  # Morton-sort the triangle table from this many triangles on
+
     def __init__(
         self,
         background: Sequence[float] = (0.0, 0.0, 0.0),
@@ -98,8 +138,11 @@ class SceneBuilder:
         self.environment = np.asarray(environment, np.float32)
         self.noise_seed = noise_seed
         self._spheres: List[dict] = []
+        self._triangles: List[dict] = []
         self._rects: List[dict] = []
+        self._transforms: List[Transform] = []
         self._lights: List[Tuple[int, int, int]] = []  # (kind, index, tslot)
+        self._media: List[dict] = []
         self._materials: List[dict] = []
         self._textures: List[dict] = []
         self._images: List[np.ndarray] = []
@@ -160,15 +203,100 @@ class SceneBuilder:
     def add_diffuse_light(self, emit_texture: int) -> int:
         return self._add_material(MAT_DIFFUSE_LIGHT, tex=emit_texture)
 
+    def add_isotropic(self, albedo_texture: int) -> int:
+        return self._add_material(MAT_ISOTROPIC, tex=albedo_texture)
+
+    # -- transforms --
+    def _transform_slot(self, transform: Optional[Transform]) -> int:
+        if transform is None:
+            return 0
+        self._transforms.append(
+            (np.asarray(transform[0], np.float32), np.asarray(transform[1], np.float32))
+        )
+        return len(self._transforms)  # slot 0 is the identity
+
     # -- shapes --
     def add_sphere(
-        self, center: Sequence[float], radius: float, material: int, *, important: bool = False
+        self, center: Sequence[float], radius: float, material: int, *, important: bool = False,
+        transform: Optional[Transform] = None,
     ) -> None:
+        slot = self._transform_slot(transform)
         self._spheres.append(
-            {"center": np.asarray(center, np.float32), "radius": float(radius), "material": material}
+            {"center": np.asarray(center, np.float32), "radius": float(radius),
+             "material": material, "transform": slot}
         )
         if important:
-            self._lights.append((LIGHT_SPHERE, len(self._spheres) - 1, 0))
+            self._lights.append((LIGHT_SPHERE, len(self._spheres) - 1, slot))
+
+    def add_medium(
+        self, density: float, material: int, *, spheres: Sequence = (), rects: Sequence = (),
+        cuboids: Sequence = (), triangles=None, transform: Optional[Transform] = None,
+        important: bool = False,
+    ) -> None:
+        """Constant medium over a boundary group (reference
+        constant_medium.rs, any inner Hittable): spheres [(center,
+        radius)], rects [(axis, a0, a1, b0, b1, k)], cuboids [(p0, p1)]
+        (six rects each), triangles (F, 3, 3).  ``transform`` wraps the
+        whole medium."""
+        if important:
+            # reference json.rs:692 (ConstantMedium is not Samplable)
+            print("importance sampling on unsupported shape!")
+        slot = self._transform_slot(transform)
+        rect_rows = [tuple(float(x) if i else int(x) for i, x in enumerate(r)) for r in rects]
+        for p0, p1 in cuboids:
+            rect_rows += [f[:6] for f in _cuboid_faces(p0, p1)]
+        tris = (np.asarray(triangles, np.float32).reshape(-1, 3, 3) if triangles is not None
+                else np.zeros((0, 3, 3), np.float32))
+        self._media.append({
+            "niv": -1.0 / float(density),
+            "material": material,
+            "transform": slot,
+            "spheres": [(np.asarray(c, np.float32), float(r)) for c, r in spheres],
+            "rects": rect_rows,
+            "tris": tris,
+        })
+
+    def add_triangle(
+        self, vertices, material: int, *, normals=None, uvs=None, important: bool = False,
+        transform: Optional[Transform] = None,
+    ) -> None:
+        v = np.asarray(vertices, np.float32)
+        if normals is None:
+            # face normal (p2-p1) x (p3-p2) (reference json.rs:581-586)
+            n = np.cross(v[1] - v[0], v[2] - v[1])
+            n = n / max(np.linalg.norm(n), 1e-30)
+            normals = np.stack([n, n, n])
+        n = np.asarray(normals, np.float32)
+        uv = np.asarray(uvs, np.float32) if uvs is not None else np.zeros((3, 2), np.float32)
+        if transform is not None:
+            m, t = np.asarray(transform[0], np.float32), np.asarray(transform[1], np.float32)
+            if np.linalg.det(m) < 0:
+                print("warning: reflection transform on triangle flips its "
+                      "winding (front_face semantics differ from reference)")
+            v = v @ m.T + t
+            n = n @ m.T  # normalized at hit time (ops/intersect.py)
+        self._triangles.append({"v": v, "n": n, "uv": uv, "material": material})
+        if important:
+            self._lights.append((LIGHT_TRIANGLE, len(self._triangles) - 1, 0))
+
+    def add_mesh_triangles(
+        self, points: np.ndarray, normals: np.ndarray, uvs: np.ndarray, material: int, *,
+        important: bool = False, transform: Optional[Transform] = None,
+    ) -> None:
+        """points, normals (F, 3, 3) and uvs (F, 3, 2) of a triangle soup."""
+        v = np.asarray(points, np.float32)
+        n = np.asarray(normals, np.float32)
+        uv = np.asarray(uvs, np.float32)
+        if transform is not None:
+            m, t = np.asarray(transform[0], np.float32), np.asarray(transform[1], np.float32)
+            v = v @ m.T + t
+            n = n @ m.T
+        base = len(self._triangles)
+        for f in range(v.shape[0]):
+            self._triangles.append({"v": v[f], "n": n[f], "uv": uv[f], "material": material})
+        if important:
+            for f in range(v.shape[0]):
+                self._lights.append((LIGHT_TRIANGLE, base + f, 0))
 
     def add_rect(
         self,
@@ -182,9 +310,14 @@ class SceneBuilder:
         *,
         positive: bool = True,
         important: bool = False,
+        transform: Optional[Transform] = None,
     ) -> None:
         if isinstance(axis, str):
             axis = RECT_AXIS_BY_NAME[axis]
+        self._add_rect_row(axis, a0, a1, b0, b1, k, positive, material,
+                           self._transform_slot(transform), important)
+
+    def _add_rect_row(self, axis, a0, a1, b0, b1, k, positive, material, slot, important):
         self._rects.append(
             {
                 "axis": int(axis),
@@ -195,18 +328,21 @@ class SceneBuilder:
                 "k": float(k),
                 "positive": bool(positive),
                 "material": material,
+                "transform": slot,
             }
         )
         if important:
-            self._lights.append((LIGHT_RECT, len(self._rects) - 1, 0))
+            self._lights.append((LIGHT_RECT, len(self._rects) - 1, slot))
 
     def add_cuboid(
-        self, p0: Sequence[float], p1: Sequence[float], material: int, *, important: bool = False
+        self, p0: Sequence[float], p1: Sequence[float], material: int, *, important: bool = False,
+        transform: Optional[Transform] = None,
     ) -> None:
-        """Expand to 6 rects exactly as reference cuboid.rs:30-61."""
+        """Expand to 6 rects exactly as reference cuboid.rs:30-61; all six
+        share one transform slot."""
+        slot = self._transform_slot(transform)
         for axis, a0, a1, b0, b1, k, positive in _cuboid_faces(p0, p1):
-            self.add_rect(axis, a0, a1, b0, b1, k, material, positive=positive,
-                          important=important)
+            self._add_rect_row(axis, a0, a1, b0, b1, k, positive, material, slot, important)
 
     # -- finalize --
     def _checker_depth(self, idx: int, visiting: Set[int]) -> int:
@@ -223,11 +359,40 @@ class SceneBuilder:
         visiting.remove(idx)
         return d
 
+    def _morton_sort(self) -> None:
+        """Sort the triangle list in Morton order of the triangles' AABB
+        centroids and remap the triangle lights, as the JAX package does
+        before its BVH build (ray_tracing_tpu/models/compiler.py:
+        _build_bvh), so triangle indices agree between the packages."""
+        v = np.stack([t["v"] for t in self._triangles]).astype(np.float32)
+        tmin = v.min(axis=1)
+        tmax = v.max(axis=1)
+        # pad degenerate (axis-flat) triangles (reference triangle.rs:37-50)
+        flat = tmax - tmin == 0.0
+        tmin = np.where(flat, tmin - 1e-3, tmin)
+        tmax = np.where(flat, tmax + 1e-3, tmax)
+        order = morton_order(tmin, tmax)
+        inverse = np.empty_like(order)
+        inverse[order] = np.arange(order.shape[0], dtype=np.int32)
+        self._triangles = [self._triangles[i] for i in order]
+        self._lights = [
+            (k, int(inverse[i]) if k == LIGHT_TRIANGLE else i, t) for (k, i, t) in self._lights
+        ]
+
     def build(self) -> SceneData:
         f32, i32 = np.float32, np.int32
 
         def t(x):
             return torch.from_numpy(np.ascontiguousarray(x))
+
+        nt = len(self._triangles)
+        if nt > SWEEP_MAX_TRIS:
+            raise NotImplementedError(
+                f"meshes above {SWEEP_MAX_TRIS} triangles (the cluster sweep) are not "
+                "ported yet, see ROADMAP"
+            )
+        if nt >= self.BVH_THRESHOLD:
+            self._morton_sort()
 
         ns = len(self._spheres)
         spheres = SphereTable(
@@ -236,9 +401,42 @@ class SceneBuilder:
             ),
             radius=t(np.asarray([s["radius"] for s in self._spheres], f32)),
             material=t(np.asarray([s["material"] for s in self._spheres], i32)),
-            transform=t(np.zeros((ns,), i32)),
+            transform=t(np.asarray([s["transform"] for s in self._spheres], i32)),
             vel=t(np.zeros((ns, 3), f32)),
+            has_transforms=any(s["transform"] for s in self._spheres),
         )
+
+        media = MediumTable(
+            boundaries=tuple(
+                make_medium_boundary(m["spheres"], m["rects"], m["tris"]) for m in self._media
+            ),
+            niv=t(np.asarray([m["niv"] for m in self._media], f32)),
+            material=t(np.asarray([m["material"] for m in self._media], i32)),
+            transform=tuple(m["transform"] for m in self._media),
+        )
+
+        if nt:
+            v = np.stack([tr["v"] for tr in self._triangles]).astype(f32)
+            n = np.stack([tr["n"] for tr in self._triangles]).astype(f32)
+            uv = np.stack([tr["uv"] for tr in self._triangles]).astype(f32)
+        else:
+            v = np.zeros((0, 3, 3), f32)
+            n = np.zeros((0, 3, 3), f32)
+            uv = np.zeros((0, 3, 2), f32)
+        triangles = TriangleTable(
+            v0=t(v[:, 0]),
+            e12=t(v[:, 1] - v[:, 0]),
+            e13=t(v[:, 2] - v[:, 0]),
+            n0=t(n[:, 0]),
+            n1=t(n[:, 1]),
+            n2=t(n[:, 2]),
+            uv0=t(uv[:, 0]),
+            uv1=t(uv[:, 1]),
+            uv2=t(uv[:, 2]),
+            material=t(np.asarray([tr["material"] for tr in self._triangles], i32)),
+        )
+        if nt:
+            triangles = pack_triangle_sweep(triangles)
 
         nr = len(self._rects)
 
@@ -254,7 +452,8 @@ class SceneBuilder:
             k=rcol("k", f32),
             positive=rcol("positive", bool),
             material=rcol("material", i32),
-            transform=t(np.zeros((nr,), i32)),
+            transform=rcol("transform", i32),
+            has_transforms=any(r["transform"] for r in self._rects),
         )
 
         if not self._materials:
@@ -330,19 +529,20 @@ class SceneBuilder:
         )
         return SceneData(
             spheres=spheres,
-            triangles=empty_triangle_table(),
+            triangles=triangles,
             rects=rects,
-            transforms=identity_transform_table(),
+            transforms=identity_transform_table(self._transforms),
             materials=materials,
             textures=textures,
             lights=lights,
             background=t(self.background),
             environment=t(self.environment),
+            media=media,
             n_spheres=ns,
-            n_triangles=0,
+            n_triangles=nt,
             n_rects=nr,
             n_lights=len(self._lights),
-            n_medium=0,
+            n_medium=len(self._media),
         )
 
 
@@ -371,6 +571,7 @@ class _JsonVisitor:
         self.tex_memo: Dict[str, int] = {}
         self.mat_memo: Dict[str, int] = {}
         self.visiting: Set[str] = set()
+        self.obj_cache: Dict[tuple, tuple] = {}
 
     # -- textures --
     def texture(self, spec) -> int:
@@ -422,7 +623,7 @@ class _JsonVisitor:
         if ty == "lambertian":
             return self.b.add_lambertian(self.texture(d["texture"]))
         if ty == "isotropic":
-            raise _not_ported("the isotropic material")
+            return self.b.add_isotropic(self.texture(d["albedo"]))
         if ty == "dielectric":
             return self.b.add_dielectric(d["ir"])
         if ty == "diffuse-light":
@@ -444,27 +645,79 @@ class _JsonVisitor:
         important = bool(obj.get("important", False))
         self.add_shape(self._shape_def(obj["shape"]), material, important)
 
+    @staticmethod
+    def _transform_of(d: dict) -> Optional[Transform]:
+        if "transform" not in d and "translate" not in d:
+            return None
+        m = np.asarray(d.get("transform", np.eye(3)), np.float32)
+        t = np.asarray(d.get("translate", np.zeros(3)), np.float32)
+        return (m, t)
+
+    def load_obj(self, file: str, model=None):
+        path = os.path.join(self.base_dir, file)
+        if not os.path.exists(path):
+            path = file
+        cache_key = (path, model if not isinstance(model, list) else tuple(model))
+        if cache_key not in self.obj_cache:
+            self.obj_cache[cache_key] = load_triangles(path, model)
+        return self.obj_cache[cache_key]
+
     def add_shape(self, d: dict, material: int, important: bool) -> None:
         ty = d["type"]
-        if ty in ("triangle", "mesh", "constant-medium", "moving-sphere"):
-            raise _not_ported(f"shape type {ty!r}")
-        if "transform" in d or "translate" in d:
-            raise _not_ported("a shape transform")
+        transform = self._transform_of(d)
+        kw = dict(important=important, transform=transform)
         if ty == "sphere":
-            self.b.add_sphere(d["center"], d["radius"], material, important=important)
+            self.b.add_sphere(d["center"], d["radius"], material, **kw)
+        elif ty == "moving-sphere":
+            raise _not_ported("shape type 'moving-sphere'")
         elif ty == "xy-rect":
             self.b.add_rect(0, d["x0"], d["x1"], d["y0"], d["y1"], d["z"], material,
-                            positive=d.get("positive", True), important=important)
+                            positive=d.get("positive", True), **kw)
         elif ty == "yz-rect":
             self.b.add_rect(1, d["y0"], d["y1"], d["z0"], d["z1"], d["x"], material,
-                            positive=d.get("positive", True), important=important)
+                            positive=d.get("positive", True), **kw)
         elif ty == "zx-rect":
             self.b.add_rect(2, d["z0"], d["z1"], d["x0"], d["x1"], d["y"], material,
-                            positive=d.get("positive", True), important=important)
+                            positive=d.get("positive", True), **kw)
+        elif ty == "triangle":
+            self.b.add_triangle(d["vertices"], material, normals=d.get("normals"),
+                                uvs=d.get("uvs"), **kw)
         elif ty == "cuboid":
-            self.b.add_cuboid(d["p0"], d["p1"], material, important=important)
+            self.b.add_cuboid(d["p0"], d["p1"], material, **kw)
+        elif ty == "mesh":
+            pts, nrm, uvs = self.load_obj(d["file"], d.get("model"))
+            self.b.add_mesh_triangles(pts, nrm, uvs, material, **kw)
+        elif ty == "constant-medium":
+            self._add_medium(d, material, kw)
         else:
             raise ValueError(f"unknown shape type {ty!r}")
+
+    def _add_medium(self, d: dict, material: int, kw: dict) -> None:
+        inner = self._shape_def(d["shape"])
+        if self._transform_of(inner) is not None:
+            raise NotImplementedError(
+                "transform on a constant-medium's inner shape is not supported; "
+                "put the transform on the constant-medium"
+            )
+        ity = inner["type"]
+        if ity == "sphere":
+            boundary = dict(spheres=[(inner["center"], inner["radius"])])
+        elif ity == "cuboid":
+            boundary = dict(cuboids=[(inner["p0"], inner["p1"])])
+        elif ity in ("xy-rect", "yz-rect", "zx-rect"):
+            names = {
+                "xy-rect": ("x0", "x1", "y0", "y1", "z"),
+                "yz-rect": ("y0", "y1", "z0", "z1", "x"),
+                "zx-rect": ("z0", "z1", "x0", "x1", "y"),
+            }[ity]
+            boundary = dict(rects=[(RECT_AXIS_BY_NAME[ity[:2]],) + tuple(inner[k] for k in names)])
+        elif ity == "triangle":
+            boundary = dict(triangles=[inner["vertices"]])
+        elif ity == "mesh":
+            boundary = dict(triangles=self.load_obj(inner["file"], inner.get("model"))[0])
+        else:
+            raise ValueError(f"unknown constant-medium inner shape type {ity!r}")
+        self.b.add_medium(d["density"], material, **boundary, **kw)
 
 
 def build_scene(param: dict, base_dir: str = ".", noise_seed: int = 0) -> SceneBundle:

@@ -7,19 +7,22 @@ intersection is a dense sweep with no dynamic dispatch.  Every table is
 a dataclass of tensors with a ``.to(device)`` method; static layout
 facts (counts, the light list) are plain Python values.
 
-The port renders spheres and rects.  Tables the port does not support
-yet (triangles, transforms other than the identity slot, motion) are
-kept, empty or at their identity values, so the tables compare field by
-field with the JAX package's.
+The port renders spheres, axis-aligned rects and triangles, instancing
+transforms and constant media.  Motion (``SphereTable.vel``) is kept at
+zero and the JAX package's BVH and triangle-cluster tables are not
+built (meshes above ``ops.intersect.SWEEP_MAX_TRIS`` triangles are
+refused), so the tables compare field by field with the JAX package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from ray_tracing_tpu_torch.ops.geometry import triangle_sweep_tables
 
 # material types (reference src/json.rs:198-207 AnyMaterial, kebab-case)
 MAT_LAMBERTIAN = 0
@@ -49,6 +52,8 @@ def _to(obj: Any, device) -> Any:
             changes[f.name] = v.to(device)
         elif dataclasses.is_dataclass(v):
             changes[f.name] = _to(v, device)
+        elif isinstance(v, tuple) and v and all(dataclasses.is_dataclass(x) for x in v):
+            changes[f.name] = tuple(_to(x, device) for x in v)
     return dataclasses.replace(obj, **changes)
 
 
@@ -62,8 +67,9 @@ class SphereTable(_Table):
     center: torch.Tensor  # (S, 3) f32
     radius: torch.Tensor  # (S,) f32
     material: torch.Tensor  # (S,) i32 index into MaterialTable
-    transform: torch.Tensor  # (S,) i32, always 0 (identity) in the port
+    transform: torch.Tensor  # (S,) i32 index into TransformTable (0 = identity)
     vel: torch.Tensor  # (S, 3) f32, always 0 (no motion) in the port
+    has_transforms: bool = False  # some row has a slot other than 0
 
     def __len__(self):
         return self.center.shape[0]
@@ -71,21 +77,42 @@ class SphereTable(_Table):
 
 @dataclasses.dataclass(frozen=True)
 class TriangleTable(_Table):
-    """Kept empty: meshes are not ported yet (ROADMAP Queue 1 item 11)."""
+    """Triangles with their transforms baked into the vertices, plus the
+    dense-sweep constants of :func:`pack_triangle_sweep` (None on an
+    empty table)."""
 
     v0: torch.Tensor  # (T, 3)
-    e12: torch.Tensor
-    e13: torch.Tensor
-    n0: torch.Tensor
+    e12: torch.Tensor  # (T, 3) v1 - v0
+    e13: torch.Tensor  # (T, 3) v2 - v0
+    n0: torch.Tensor  # (T, 3) per-vertex shading normals
     n1: torch.Tensor
     n2: torch.Tensor
     uv0: torch.Tensor  # (T, 2)
     uv1: torch.Tensor
     uv2: torch.Tensor
     material: torch.Tensor  # (T,) i32
+    sw_origin: Optional[torch.Tensor] = None  # (3,) translated origin
+    sw_n: Optional[torch.Tensor] = None  # (T, 3) e12 x e13
+    sw_g1: Optional[torch.Tensor] = None  # (T, 3) e13 x (v0 - origin)
+    sw_g2: Optional[torch.Tensor] = None  # (T, 3) e12 x (v0 - origin)
+    sw_d0: Optional[torch.Tensor] = None  # (T,) (v0 - origin) . n
 
     def __len__(self):
         return self.v0.shape[0]
+
+    @property
+    def has_sweep(self) -> bool:
+        return self.sw_n is not None
+
+
+def pack_triangle_sweep(tris: TriangleTable) -> TriangleTable:
+    """Attach the dense-sweep triple-product constants (host, float64 then
+    float32; ops/geometry.py:triangle_sweep_tables)."""
+    origin, n, g1, g2, d0 = (
+        torch.from_numpy(x)
+        for x in triangle_sweep_tables(tris.v0.numpy(), tris.e12.numpy(), tris.e13.numpy())
+    )
+    return dataclasses.replace(tris, sw_origin=origin, sw_n=n, sw_g1=g1, sw_g2=g2, sw_d0=d0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +125,8 @@ class RectTable(_Table):
     k: torch.Tensor
     positive: torch.Tensor  # (R,) bool outward-normal sign
     material: torch.Tensor  # (R,) i32
-    transform: torch.Tensor  # (R,) i32, always 0 (identity) in the port
+    transform: torch.Tensor  # (R,) i32 index into TransformTable (0 = identity)
+    has_transforms: bool = False  # some row has a slot other than 0
 
     def __len__(self):
         return self.axis.shape[0]
@@ -106,7 +134,8 @@ class RectTable(_Table):
 
 @dataclasses.dataclass(frozen=True)
 class TransformTable(_Table):
-    """Instancing transforms; the port holds only slot 0, the identity."""
+    """Affine instancing transforms x -> fwd x + fwd_t (reference
+    transform.rs:16-31); slot 0 is the identity."""
 
     fwd: torch.Tensor  # (X, 3, 3)
     fwd_t: torch.Tensor  # (X, 3)
@@ -147,6 +176,63 @@ class TextureTable(_Table):
 
 
 @dataclasses.dataclass(frozen=True)
+class MediumBoundary(_Table):
+    """The boundary primitives of one constant medium (reference
+    constant_medium.rs:41-60 takes any inner shape; a cuboid becomes its
+    six rects).  The counts per kind are static."""
+
+    sph_center: torch.Tensor  # (Bs, 3)
+    sph_radius: torch.Tensor  # (Bs,)
+    rect_axis: torch.Tensor  # (Br,) i32 variant 0=xy/1=yz/2=zx
+    rect_a0: torch.Tensor
+    rect_a1: torch.Tensor
+    rect_b0: torch.Tensor
+    rect_b1: torch.Tensor
+    rect_k: torch.Tensor
+    tri_v0: torch.Tensor  # (Bt, 3)
+    tri_e12: torch.Tensor
+    tri_e13: torch.Tensor
+    n_sph: int = 0
+    n_rect: int = 0
+    n_tri: int = 0
+
+
+def make_medium_boundary(spheres=(), rects=(), tris=()) -> MediumBoundary:
+    """spheres: [(center, radius)]; rects: [(axis, a0, a1, b0, b1, k)];
+    tris: (Bt, 3, 3) vertices."""
+    f32 = np.float32
+    t = torch.from_numpy
+    sc = np.stack([np.asarray(c, f32) for c, _ in spheres]) if spheres else np.zeros((0, 3), f32)
+    sr = np.asarray([r for _, r in spheres], f32)
+    ra = np.asarray([r[0] for r in rects], np.int32)
+    rf = [np.asarray([r[i] for r in rects], f32) for i in range(1, 6)]
+    tv = np.asarray(tris, f32).reshape(-1, 3, 3) if len(tris) else np.zeros((0, 3, 3), f32)
+    return MediumBoundary(
+        sph_center=t(sc), sph_radius=t(sr),
+        rect_axis=t(ra), rect_a0=t(rf[0]), rect_a1=t(rf[1]),
+        rect_b0=t(rf[2]), rect_b1=t(rf[3]), rect_k=t(rf[4]),
+        tri_v0=t(np.ascontiguousarray(tv[:, 0])), tri_e12=t(tv[:, 1] - tv[:, 0]),
+        tri_e13=t(tv[:, 2] - tv[:, 0]),
+        n_sph=len(spheres), n_rect=len(rects), n_tri=tv.shape[0],
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class MediumTable(_Table):
+    """All constant media: one :class:`MediumBoundary` per medium, its
+    ``neg_inv_density``, its phase-function material and the static
+    transform slot around the whole medium."""
+
+    boundaries: tuple
+    niv: torch.Tensor  # (M,) f32 -1 / density
+    material: torch.Tensor  # (M,) i32
+    transform: tuple
+
+    def __len__(self):
+        return len(self.boundaries)
+
+
+@dataclasses.dataclass(frozen=True)
 class LightTable(_Table):
     """Importance-sampled primitives (reference src/scene.rs:52-61); a
     static list, so kinds and indices are plain tuples."""
@@ -172,6 +258,7 @@ class SceneData(_Table):
     lights: LightTable
     background: torch.Tensor  # (3,) color for rays that miss everything
     environment: torch.Tensor  # (3,) color at depth exhaustion
+    media: MediumTable
     n_spheres: int = 0
     n_triangles: int = 0
     n_rects: int = 0
@@ -193,11 +280,20 @@ class SceneData(_Table):
 
 def _tensors(cls, src, **static):
     """Build table ``cls`` from the same-named attributes of ``src``
-    (numpy arrays, or anything ``np.asarray`` takes)."""
+    (numpy arrays, anything ``np.asarray`` takes, or None for an absent
+    optional table); fields annotated ``bool``, ``int`` or ``tuple`` are
+    static values."""
     kw = dict(static)
     for f in dataclasses.fields(cls):
-        if f.name not in kw:
-            kw[f.name] = torch.from_numpy(np.array(getattr(src, f.name)))
+        if f.name in kw:
+            continue
+        v = getattr(src, f.name, None)
+        if f.type in ("bool", "int"):
+            kw[f.name] = {"bool": bool, "int": int}[f.type](v)
+        elif f.type == "tuple":
+            kw[f.name] = tuple(int(x) for x in v)
+        else:
+            kw[f.name] = None if v is None else torch.from_numpy(np.array(v))
     return cls(**kw)
 
 
@@ -206,23 +302,26 @@ def scene_from_numpy(tree) -> SceneData:
     arrays: the JAX package's ``SceneData`` after
     ``jax.tree.map(np.asarray, scene)``, or a port scene on the CPU.
 
-    Raises ``NotImplementedError`` for what the port cannot render yet:
-    triangles, constant media, instancing transforms and moving spheres.
+    The JAX package's BVH and triangle-cluster tables are dropped: the
+    port sweeps meshes densely.  Raises ``NotImplementedError`` for what
+    the port cannot render yet: meshes above ``SWEEP_MAX_TRIS`` triangles
+    (the cluster sweep) and moving spheres.
     """
-    if tree.n_triangles or tree.n_medium:
+    from ray_tracing_tpu_torch.ops.intersect import SWEEP_MAX_TRIS
+
+    if int(tree.n_triangles) > SWEEP_MAX_TRIS:
         raise NotImplementedError(
-            "triangles and constant media are not ported yet, see ROADMAP"
+            f"meshes above {SWEEP_MAX_TRIS} triangles (the cluster sweep) are not "
+            "ported yet, see ROADMAP"
         )
-    if np.any(np.asarray(tree.spheres.transform)) or np.any(
-        np.asarray(tree.rects.transform)
-    ):
-        raise NotImplementedError("transforms are not ported yet, see ROADMAP")
-    if np.any(np.asarray(tree.spheres.vel)):
+    if tree.spheres.vel is not None and np.any(np.asarray(tree.spheres.vel)):
         raise NotImplementedError("moving spheres are not ported yet, see ROADMAP")
     tt = tree.textures
     lt = tree.lights
+    md = tree.media
     return SceneData(
-        spheres=_tensors(SphereTable, tree.spheres),
+        spheres=_tensors(SphereTable, tree.spheres,
+                         vel=torch.zeros((int(tree.n_spheres), 3), dtype=torch.float32)),
         triangles=_tensors(TriangleTable, tree.triangles),
         rects=_tensors(RectTable, tree.rects),
         transforms=_tensors(TransformTable, tree.transforms),
@@ -239,24 +338,40 @@ def scene_from_numpy(tree) -> SceneData:
         ),
         background=torch.from_numpy(np.array(tree.background)),
         environment=torch.from_numpy(np.array(tree.environment)),
+        media=_tensors(
+            MediumTable, md,
+            boundaries=tuple(_tensors(MediumBoundary, b) for b in md.boundaries),
+        ),
         n_spheres=int(tree.n_spheres),
-        n_triangles=0,
+        n_triangles=int(tree.n_triangles),
         n_rects=int(tree.n_rects),
         n_lights=int(tree.n_lights),
-        n_medium=0,
+        n_medium=int(tree.n_medium),
     )
 
 
-def identity_transform_table() -> TransformTable:
-    eye = torch.eye(3, dtype=torch.float32)[None]
-    zero = torch.zeros((1, 3), dtype=torch.float32)
-    return TransformTable(fwd=eye, fwd_t=zero, inv=eye.clone(), inv_t=zero.clone())
-
-
-def empty_triangle_table() -> TriangleTable:
-    z3 = torch.zeros((0, 3), dtype=torch.float32)
-    z2 = torch.zeros((0, 2), dtype=torch.float32)
-    return TriangleTable(
-        v0=z3, e12=z3, e13=z3, n0=z3, n1=z3, n2=z3, uv0=z2, uv1=z2, uv2=z2,
-        material=torch.zeros((0,), dtype=torch.int32),
+def identity_transform_table(extra=None) -> TransformTable:
+    """A transform table whose slot 0 is the identity; ``extra`` is a list
+    of (fwd 3x3, translate 3) pairs appended after it, each inverted in
+    float64 as the 4x4 affine map (reference transform.rs:18-22)."""
+    fwds = [np.eye(3, dtype=np.float32)]
+    ts = [np.zeros(3, dtype=np.float32)]
+    invs = [np.eye(3, dtype=np.float32)]
+    inv_ts = [np.zeros(3, dtype=np.float32)]
+    for fwd, t in extra or []:
+        fwd = np.asarray(fwd, dtype=np.float32)
+        t = np.asarray(t, dtype=np.float32)
+        m = np.eye(4, dtype=np.float64)
+        m[:3, :3] = fwd
+        m[:3, 3] = t
+        mi = np.linalg.inv(m)
+        fwds.append(fwd)
+        ts.append(t)
+        invs.append(mi[:3, :3].astype(np.float32))
+        inv_ts.append(mi[:3, 3].astype(np.float32))
+    return TransformTable(
+        fwd=torch.from_numpy(np.stack(fwds)),
+        fwd_t=torch.from_numpy(np.stack(ts)),
+        inv=torch.from_numpy(np.stack(invs)),
+        inv_t=torch.from_numpy(np.stack(inv_ts)),
     )

@@ -1,12 +1,16 @@
-"""K1, the phase-A intersection kernel, and its plain PyTorch version.
+"""K1 and K3, the phase-A intersection kernels, and their plain PyTorch
+version.
 
 The counterpart of ``ray_tracing_tpu/ops/pallas_intersect.py``: the
-CUDA kernel in ``csrc/intersect.cu`` replaces ``pallas_intersect.py:
-_kernel`` in its plain variant (no transforms, no motion).  It is bound
-by its 36 B/ray of device-memory traffic (rays in, winner out) against
-~20 flops per primitive, and keeps the primitive tables in shared
-memory.  :func:`phase_a_plain` computes the same function from the
-candidate grids of ops/intersect.py.
+CUDA kernel template in ``csrc/intersect.cu`` replaces ``pallas_intersect.py:
+_kernel``.  K1 is its plain variant; K3 its transformed variants, taken
+when the sphere or the rect table carries instancing transforms (every
+row of such a table is then extended with [inv(9) inv_t(3)], the
+identity for slot 0).  Both are bound by their 36 B/ray of
+device-memory traffic (rays in, winner out) against ~20 flops per
+primitive (~60 with a transform), and keep the primitive tables in
+shared memory.  :func:`phase_a_plain` computes the same function from
+the candidate grids of ops/intersect.py.
 
 :func:`phase_a` launches the kernel for CUDA tensors and takes the
 plain version only for CPU tensors.  The kernel is built at first use
@@ -34,9 +38,11 @@ from ray_tracing_tpu_torch.ops.intersect import (
 SOURCE = _build.CSRC / "intersect.cu"
 SPHERE_COLS = 4
 RECT_COLS = 14
+TF_COLS = 12  # [inv(9) inv_t(3)] after the base columns of a transformed table
 SMEM_LIMIT = 48 * 1024  # default dynamic shared memory a block may take
 
-LAUNCHES = 0  # kernel launches since the last reset
+LAUNCHES = 0  # K1 launches (no table transformed) since the last reset
+TF_LAUNCHES = 0  # K3 launches (a table transformed) since the last reset
 
 _lib = None
 
@@ -44,12 +50,21 @@ _lib = None
 def pack_primitive_tables(scene: SceneData):
     """Spheres (S, 4) = [cx cy cz r] and rects (R, 14) = [ua(3) ub(3)
     uk(3) a0 a1 b0 b1 k], float32 and contiguous, on the scene's device
-    (the counterpart of pallas_intersect.py:pack_primitive_tables)."""
+    (the counterpart of pallas_intersect.py:pack_primitive_tables).  A
+    table with instancing transforms gets [inv(9) inv_t(3)] on every
+    row: (S, 16), (R, 26)."""
     sp, rc = scene.spheres, scene.rects
+    tf = scene.transforms
     sph = torch.cat([sp.center, sp.radius[:, None]], dim=1)
+    if sp.has_transforms:
+        slot = sp.transform.long()
+        sph = torch.cat([sph, tf.inv[slot].reshape(-1, 9), tf.inv_t[slot]], dim=1)
     ua, ub, uk = geo.rect_basis(rc.axis)
     bounds = torch.stack([rc.a0, rc.a1, rc.b0, rc.b1, rc.k], dim=1)
     rect = torch.cat([ua, ub, uk, bounds], dim=1)
+    if rc.has_transforms:
+        slot = rc.transform.long()
+        rect = torch.cat([rect, tf.inv[slot].reshape(-1, 9), tf.inv_t[slot]], dim=1)
     return sph.contiguous(), rect.contiguous()
 
 
@@ -57,7 +72,10 @@ def phase_a_plain(sph, rect, ro, rd, t_min: float, t_max: float):
     """Nearest sphere/rect hit per ray in plain PyTorch: (t (N,) f32,
     kind (N,) i32 with -1 on a miss, idx (N,) i32).  Spheres first, then
     rects; a kind wins only with a strictly smaller t, and within a kind
-    the lowest index wins a tie."""
+    the lowest index wins a tie.  A transformed table (see
+    :func:`pack_primitive_tables`) is tested in each row's object space
+    over the window [t_min nrm, t_max nrm] and compared in world t =
+    t_obj / nrm."""
     n = ro.shape[0]
     best_t = torch.full((n,), INF, dtype=torch.float32, device=ro.device)
     best_kind = torch.full((n,), KIND_NONE, dtype=torch.int32, device=ro.device)
@@ -85,7 +103,7 @@ def _library():
         lib = ctypes.CDLL(str(_build.build(SOURCE)))
         fn = lib.phase_a_launch
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, p, i, p, p, i, f, f, p, p, p, p]
+        fn.argtypes = [p, i, i, p, i, i, p, p, i, f, f, p, p, p, p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -96,29 +114,34 @@ def _check(name, x, device, cols):
         raise ValueError(f"{name} is on {x.device}, expected {device}")
     if x.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {x.dtype}")
-    if x.dim() != 2 or x.shape[1] != cols:
-        raise ValueError(f"{name} must have shape (n, {cols}), got {tuple(x.shape)}")
+    if x.dim() != 2 or x.shape[1] not in cols:
+        raise ValueError(f"{name} must have shape (n, {' or '.join(map(str, cols))}), "
+                         f"got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
 def phase_a_cuda(sph, rect, ro, rd, t_min: float, t_max: float):
-    """K1 on CUDA tensors; the same outputs as :func:`phase_a_plain`."""
-    global LAUNCHES
+    """K1 (plain tables) or K3 (a transformed table) on CUDA tensors; the
+    same outputs as :func:`phase_a_plain`."""
+    global LAUNCHES, TF_LAUNCHES
     device = ro.device
     if device.type != "cuda":
-        raise ValueError(f"K1 takes CUDA tensors, got {device}")
-    for name, x, cols in (("ro", ro, 3), ("rd", rd, 3), ("sph", sph, SPHERE_COLS),
-                          ("rect", rect, RECT_COLS)):
+        raise ValueError(f"K1/K3 take CUDA tensors, got {device}")
+    for name, x, cols in (("ro", ro, (3,)), ("rd", rd, (3,)),
+                          ("sph", sph, (SPHERE_COLS, SPHERE_COLS + TF_COLS)),
+                          ("rect", rect, (RECT_COLS, RECT_COLS + TF_COLS))):
         _check(name, x, device, cols)
     n = ro.shape[0]
     if rd.shape[0] != n:
         raise ValueError(f"ro has {n} rays, rd {rd.shape[0]}")
     if n >= 2**31:
-        raise ValueError(f"K1 takes fewer than 2**31 rays, got {n}")
-    smem = 4 * (SPHERE_COLS * sph.shape[0] + RECT_COLS * rect.shape[0])
+        raise ValueError(f"K1/K3 take fewer than 2**31 rays, got {n}")
+    sph_tf = sph.shape[1] != SPHERE_COLS
+    rect_tf = rect.shape[1] != RECT_COLS
+    smem = 4 * (sph.numel() + rect.numel())
     if smem > SMEM_LIMIT:
-        raise ValueError(f"primitive tables take {smem} B, over K1's {SMEM_LIMIT} B")
+        raise ValueError(f"primitive tables take {smem} B, over K1/K3's {SMEM_LIMIT} B")
     t = torch.empty((n,), dtype=torch.float32, device=device)
     kind = torch.empty((n,), dtype=torch.int32, device=device)
     idx = torch.empty((n,), dtype=torch.int32, device=device)
@@ -127,14 +150,17 @@ def phase_a_cuda(sph, rect, ro, rd, t_min: float, t_max: float):
     fn = _library().phase_a_launch
     with torch.cuda.device(device):
         err = fn(
-            sph.data_ptr(), sph.shape[0], rect.data_ptr(), rect.shape[0],
-            ro.data_ptr(), rd.data_ptr(), n, t_min, t_max,
+            sph.data_ptr(), sph.shape[0], int(sph_tf), rect.data_ptr(), rect.shape[0],
+            int(rect_tf), ro.data_ptr(), rd.data_ptr(), n, t_min, t_max,
             t.data_ptr(), kind.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"K1 launch failed: cudaError {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"K1/K3 launch failed: cudaError {err}")
+    if sph_tf or rect_tf:
+        TF_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return t, kind, idx
 
 

@@ -1,6 +1,6 @@
-"""Ray-primitive math for spheres and axis-aligned rects, the PyTorch
-counterpart of the parts of ``ray_tracing_tpu/ops/geometry.py`` that the
-port renders.
+"""Ray-primitive math for spheres, axis-aligned rects, triangles and
+instancing transforms, the PyTorch counterpart of the parts of
+``ray_tracing_tpu/ops/geometry.py`` that the port renders.
 
 Every function broadcasts over leading batch shapes: rays shaped
 ``(N, 1, 3)`` against tables shaped ``(P, 3)`` give an ``(N, P)``
@@ -8,8 +8,8 @@ candidate grid; one gathered primitive per ray, ``(N, 3)`` against
 ``(N, 3)``, gives the full-record phase.  Dot products are written out
 as three products and two adds in a fixed order, so every value is a
 pure function of its own ray (no reduction whose order depends on the
-tensor's layout) and the CUDA phase-A kernel (csrc/intersect.cu)
-rounds exactly as this code does.
+tensor's layout) and the CUDA kernels (csrc/intersect.cu,
+csrc/triangles.cu) round exactly as this code does.
 """
 
 from __future__ import annotations
@@ -139,3 +139,103 @@ def face_normal(rd, outward_normal):
     front_face = dot(rd, outward_normal) < 0.0
     normal = torch.where(front_face[..., None], outward_normal, -outward_normal)
     return front_face, normal
+
+
+def triangle_t(ro, rd, v0, e12, e13, t_min, t_max):
+    """Moeller-Trumbore with the reference's mask chain (reference
+    triangle.rs:56-95).  Returns (t, mask, u, v, det)."""
+    p_vec = cross(rd, e13)
+    det = dot(e12, p_vec)
+    mask = torch.abs(det) > 0.0
+    inv_det = torch.where(mask, 1.0 / torch.where(mask, det, 1.0), 0.0)
+    t_vec = ro - v0
+    u = inv_det * dot(t_vec, p_vec)
+    mask = mask & (u >= 0.0) & (u <= 1.0)
+    q_vec = cross(t_vec, e12)
+    v = inv_det * dot(rd, q_vec)
+    mask = mask & (v >= 0.0) & (u + v <= 1.0)
+    t = inv_det * dot(e13, q_vec)
+    mask = mask & (t >= t_min) & (t <= t_max)
+    return t, mask, u, v, det
+
+
+def _bdot3(a, b):
+    """(N, 3) x (T, 3) -> (N, T) dot-product grid as three broadcast
+    products and two adds, ((a0 b0 + a1 b1) + a2 b2): no (N, T, 3)
+    intermediate and no matrix product (see :func:`matvec3`)."""
+    return (a[:, 0:1] * b[None, :, 0] + a[:, 1:2] * b[None, :, 1]) + a[:, 2:3] * b[None, :, 2]
+
+
+def triangle_sweep_tables(v0, e12, e13):
+    """Per-triangle constants of the triple-product sweep (host, numpy).
+
+    With m = ro x rd, Moeller-Trumbore's per-pair products become
+    (N, T) dot products against per-triangle constants::
+
+        det   = -(rd . n)            n  = e12 x e13
+        u*det =  m . e13 - rd . g1   g1 = e13 x v0
+        v*det =  rd . g2 - m . e12   g2 = e12 x v0
+        t*det =  ro . n  - d0        d0 = v0 . n
+
+    The constants are computed in float64 against a translated origin
+    (the mean of v0), since the two terms of each line cancel at scene
+    scale otherwise.  Returns (origin (3,), n, g1, g2 (T, 3), d0 (T,)),
+    float32."""
+    v0 = np.asarray(v0, np.float64)
+    e12 = np.asarray(e12, np.float64)
+    e13 = np.asarray(e13, np.float64)
+    origin = v0.mean(axis=0) if v0.shape[0] else np.zeros(3)
+    v0s = v0 - origin
+    n = np.cross(e12, e13)
+    g1 = np.cross(e13, v0s)
+    g2 = np.cross(e12, v0s)
+    d0 = np.sum(v0s * n, axis=-1)
+    f = np.float32
+    return origin.astype(f), n.astype(f), g1.astype(f), g2.astype(f), d0.astype(f)
+
+
+def triangle_sweep_t(ro_s, rd, m, e12, e13, n, g1, g2, d0, t_min, t_max):
+    """(N, T) candidate grid (t, mask) of the triple-product sweep.
+
+    ``ro_s`` are ray origins already translated by the table's
+    ``sw_origin`` (float32 ``ro - sw_origin``), ``m = cross(ro_s, rd)``;
+    e12, e13, n, g1, g2: (T, 3); d0: (T,).  The mask chain is the
+    reference's (triangle.rs:56-95); u, v and t differ from
+    :func:`triangle_t` only by float32 rounding, so phase B re-derives
+    the record with :func:`triangle_t`."""
+    det = -_bdot3(rd, n)
+    mask = torch.abs(det) > 0.0
+    inv = torch.where(mask, 1.0 / torch.where(mask, det, 1.0), 0.0)
+    u = inv * (_bdot3(m, e13) - _bdot3(rd, g1))
+    mask = mask & (u >= 0.0) & (u <= 1.0)
+    v = inv * (_bdot3(rd, g2) - _bdot3(m, e12))
+    mask = mask & (v >= 0.0) & (u + v <= 1.0)
+    t = inv * (_bdot3(ro_s, n) - d0[None, :])
+    mask = mask & (t >= t_min) & (t <= t_max)
+    return t, mask
+
+
+def matvec3(m, v):
+    """(..., 3, 3) times (..., 3) as explicit float32 products and adds,
+    ((m0 x + m1 y) + m2 z) per row.  Never a matrix product: on the card
+    a float32 matmul may run in TF32 (about three decimal digits), which
+    moves ray origins by whole units at Cornell-box scale."""
+    return (m[..., 0] * v[..., 0:1] + m[..., 1] * v[..., 1:2]) + m[..., 2] * v[..., 2:3]
+
+
+def transform_ray(inv, inv_t, ro, rd):
+    """World ray -> object space (reference transform.rs:72-83): returns
+    (ro_obj, rd_obj unit, nrm), world t = object t / nrm.  ``inv`` is
+    (..., 3, 3) row-major, ``inv_t`` (..., 3)."""
+    ro_obj = matvec3(inv, ro) + inv_t
+    d = matvec3(inv, rd)
+    nrm = norm(d)
+    return ro_obj, d / torch.clamp_min(nrm, 1e-30)[..., None], nrm
+
+
+def transform_point(fwd, fwd_t, p):
+    return matvec3(fwd, p) + fwd_t
+
+
+def transform_dir(fwd, d):
+    return matvec3(fwd, d)

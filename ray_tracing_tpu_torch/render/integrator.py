@@ -36,8 +36,11 @@ def _bounce(scene: SceneData, key, bounce: int, carry, count_segments: bool = Tr
     rad, thr, ro, rd, alive, ids, segments = carry
     if count_segments:
         segments = segments + alive.sum()
-    u = ray_uniforms(key, ids, bounce, N_SCATTER_U)
-    hit = intersect_scene(scene, ro, rd, EPSILON, INF)
+    # the scatter block, then one free-flight column per constant medium
+    u = ray_uniforms(key, ids, bounce, N_SCATTER_U + scene.n_medium)
+    med_u = u[:, N_SCATTER_U:] if scene.n_medium else None
+    u = u[:, :N_SCATTER_U]
+    hit = intersect_scene(scene, ro, rd, EPSILON, INF, med_u)
     found = alive & hit.mask
     miss = alive & ~hit.mask
 

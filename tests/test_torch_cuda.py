@@ -1,6 +1,6 @@
-"""Tests of the port that need an NVIDIA GPU: K1 and K2 against their
-plain versions on the card, and the render and gradient paths on the
-card.  They skip without a GPU.  The file imports no JAX, so on a machine with a GPU
+"""Tests of the port that need an NVIDIA GPU: K1, K2, K3 and K5 against
+their plain versions on the card, and the render and gradient paths on
+the card.  They skip without a GPU.  The file imports no JAX, so on a machine with a GPU
 and without JAX it runs on its own:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -15,12 +15,14 @@ from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
 from ray_tracing_tpu_torch.ops import _build
 from ray_tracing_tpu_torch.ops import cuda_intersect as ci
 from ray_tracing_tpu_torch.ops import cuda_scatter as cs
+from ray_tracing_tpu_torch.ops import cuda_triangles as ct
 from ray_tracing_tpu_torch.ops import rng
 from ray_tracing_tpu_torch.render.prb_scalar import params_of, prb_loss_and_grad_all
 
 pytestmark = pytest.mark.cuda
 
 ZY = "data/zy_scene.json"
+SCENE = "data/scene.json"
 
 
 @pytest.fixture(scope="module")
@@ -33,6 +35,11 @@ def cuda():
 @pytest.fixture(scope="module")
 def zy():
     return prt.load_scene_json(ZY)
+
+
+@pytest.fixture(scope="module")
+def scene_json():
+    return prt.load_scene_json(SCENE)
 
 
 def _ray_sets(bundle, device):
@@ -88,8 +95,8 @@ def test_render_on_card(cuda, zy):
 
 
 def test_both_kernels_build_through_the_shared_builder(cuda):
-    libs = [_build.build(source) for source in (ci.SOURCE, cs.SOURCE)]
-    assert [lib.name.split("_")[0] for lib in libs] == ["intersect", "scatter"]
+    libs = [_build.build(source) for source in (ci.SOURCE, cs.SOURCE, ct.SOURCE)]
+    assert [lib.name.split("_")[0] for lib in libs] == ["intersect", "scatter", "triangles"]
     assert all(lib.exists() and lib.parent == _build.BUILD_DIR for lib in libs)
 
 
@@ -166,3 +173,88 @@ def test_gradient_pass_on_card_matches_cpu(cuda, zy):
         matched = float((a - b).abs().sum())
         floor = float((a - c).abs().sum())
         assert floor > 0 and matched <= 0.6 * floor, (name, matched, floor)
+
+
+def _bunny_rays(n, seed, device):
+    """Rays from around the box aimed at scene.json's bunny (x 250-360,
+    y 30-190, z 140-270 after its transform)."""
+    r = np.random.RandomState(seed)
+    ro = r.uniform(20.0, 535.0, (n, 3)).astype(np.float32)
+    target = r.uniform([250, 30, 140], [360, 190, 270], (n, 3)).astype(np.float32)
+    rd = target - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    return torch.from_numpy(ro).to(device), torch.from_numpy(rd).to(device)
+
+
+def test_transformed_kernel_matches_plain_on_card(cuda, scene_json):
+    """K3 (scene.json's rects carry transforms) against phase_a_plain:
+    kind and idx equal, t to rtol 1e-5, and some winners on the rotated
+    cuboid."""
+    sph, rect = ci.pack_primitive_tables(scene_json.scene.to(cuda))
+    assert rect.shape[1] == ci.RECT_COLS + ci.TF_COLS
+    for ro, rd in _ray_sets(scene_json, cuda):
+        before = (ci.LAUNCHES, ci.TF_LAUNCHES)
+        got = ci.phase_a_cuda(sph, rect, ro, rd, 1e-3, np.inf)
+        torch.cuda.synchronize()
+        assert (ci.LAUNCHES, ci.TF_LAUNCHES) == (before[0], before[1] + 1)
+        want = ci.phase_a_plain(sph, rect, ro, rd, 1e-3, np.inf)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+        assert int(((got[1] == 2) & (got[2] < 6)).sum()) > 0
+
+
+def test_triangle_kernel_matches_plain_on_card(cuda, scene_json):
+    """K5 against triangle_sweep_plain on scene.json's 4,969 triangles:
+    found and idx equal, t equal or within rtol 1e-6, camera rays and
+    rays aimed at the bunny (with a ragged tail)."""
+    tr = scene_json.scene.triangles.to(cuda)
+    tri = ct.pack_triangle_table(tr)
+    sets = [_ray_sets(scene_json, cuda)[0], _bunny_rays(5003, 1, cuda)]
+    for ro, rd in sets:
+        before = ct.LAUNCHES
+        got = ct.triangle_sweep_cuda(tri, tr.sw_origin, ro, rd, 1e-3, np.inf)
+        torch.cuda.synchronize()
+        assert ct.LAUNCHES == before + 1
+        want = ct.triangle_sweep_plain(tri, tr.sw_origin, ro, rd, 1e-3, np.inf)
+        assert torch.equal(got[2], want[2])
+        assert torch.equal(got[1][got[2]], want[1][want[2]])
+        torch.testing.assert_close(got[0][got[2]], want[0][want[2]], rtol=1e-6, atol=0.0)
+        assert got[2].float().mean() > 0.01
+
+
+def test_triangle_kernel_refuses_bad_inputs(cuda, scene_json):
+    tr = scene_json.scene.triangles.to(cuda)
+    tri = ct.pack_triangle_table(tr)
+    ro, rd = _bunny_rays(100, 2, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ct.triangle_sweep_cuda(tri, tr.sw_origin, ro.t().contiguous().t(), rd, 1e-3, np.inf)
+    with pytest.raises(ValueError, match="is on"):
+        ct.triangle_sweep_cuda(tri.cpu(), tr.sw_origin, ro, rd, 1e-3, np.inf)
+    with pytest.raises(ValueError, match="shape"):
+        ct.triangle_sweep_cuda(tri[:, :15].contiguous(), tr.sw_origin, ro, rd, 1e-3, np.inf)
+    with pytest.raises(TypeError, match="float32"):
+        ct.triangle_sweep_cuda(tri, tr.sw_origin, ro.double(), rd, 1e-3, np.inf)
+    before = ct.LAUNCHES
+    empty = torch.zeros((0, 3), device=cuda)
+    out = ct.triangle_sweep_cuda(tri, tr.sw_origin, empty, empty, 1e-3, np.inf)
+    assert all(x.numel() == 0 for x in out) and ct.LAUNCHES == before
+
+
+def test_scene_json_render_on_card(cuda, scene_json):
+    """scene.json at 64x64 depth 8 on the card: K3 and K5 launched,
+    finite, compacted equal to dense, deterministic; the depth-1 image
+    equals the CPU's."""
+    param = prt.RendererParam(64, 64, max_depth=8)
+    compact = prt.Renderer(param, scene_json.camera, scene_json.scene, device=cuda)
+    dense = prt.Renderer(param, scene_json.camera, scene_json.scene, device=cuda,
+                         compaction=False)
+    before = (ci.TF_LAUNCHES, ct.LAUNCHES)
+    img = compact.render(4)
+    assert ci.TF_LAUNCHES > before[0] and ct.LAUNCHES > before[1]
+    assert img.device.type == "cuda" and torch.isfinite(img).all() and (img >= 0).all()
+    assert torch.equal(img, dense.render(4))
+    assert torch.equal(img, compact.render(4))
+    one = prt.RendererParam(32, 32, max_depth=1)
+    on_card = prt.Renderer(one, scene_json.camera, scene_json.scene, device=cuda).render(4).cpu()
+    on_cpu = prt.Renderer(one, scene_json.camera, scene_json.scene, device="cpu").render(4)
+    assert torch.equal(on_card, on_cpu)

@@ -24,7 +24,9 @@ PKG = os.path.dirname(prt.__file__)
 
 def _assert_tables_equal(ours, ref, path="scene"):
     """Every field of the port's table equals the same-named field of
-    the JAX table exactly (values, dtype and shape)."""
+    the JAX table exactly (values, dtype and shape); the JAX package's
+    BVH and cluster tables, which the port does not build, are not
+    fields of the port's tables."""
     for f in dataclasses.fields(ours):
         mine, theirs = getattr(ours, f.name), getattr(ref, f.name)
         where = f"{path}.{f.name}"
@@ -34,6 +36,10 @@ def _assert_tables_equal(ours, ref, path="scene"):
             np.testing.assert_array_equal(mine.numpy(), theirs, err_msg=where)
         elif dataclasses.is_dataclass(mine):
             _assert_tables_equal(mine, theirs, where)
+        elif isinstance(mine, tuple) and mine and dataclasses.is_dataclass(mine[0]):
+            assert len(mine) == len(theirs), where
+            for i, (a, b) in enumerate(zip(mine, theirs)):
+                _assert_tables_equal(a, b, f"{where}[{i}]")
         elif isinstance(mine, tuple):
             assert mine == tuple(theirs), where
         else:
@@ -62,7 +68,13 @@ def test_scene_from_numpy_round_trips(bundles):
 
 
 def test_scene_from_numpy_refuses_unported_jax_scene():
-    scene = jrt.load_scene_json("data/scene.json").scene  # mesh, medium, transform
+    """Moving spheres (K4) and meshes that need the cluster sweep (K6/K7)
+    are not ported; data/scene.json bridges (tests/test_torch_mesh.py)."""
+    b = jrt.SceneBuilder()
+    b.add_sphere_moving((0, 0, 0), (1, 0, 0), 1.0, b.add_lambertian(b.add_texture_solid((1, 1, 1))))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        prt.scene_from_numpy(jax.tree.map(np.asarray, b.build()))
+    scene = jrt.load_scene_json("data/scene.json").scene.replace(n_triangles=40000)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         prt.scene_from_numpy(jax.tree.map(np.asarray, scene))
 
@@ -78,29 +90,34 @@ _CAMERA = {"look_from": [0, 0, -5], "look_at": [0, 0, 0], "vfov": 40}
 _WHITE = {"type": "lambertian", "texture": {"type": "solid-color", "color": [0.5, 0.5, 0.5]}}
 
 
+_BUNNY = {"type": "mesh", "file": "bunny.obj"}
+_IMPORTANT_TRIANGLE = {"shape": {"type": "triangle", "vertices": [[0, 0, 0], [1, 0, 0], [0, 1, 0]]},
+                       "material": _WHITE, "important": True}
+
+
 @pytest.mark.parametrize(
-    "shape, material",
+    "objects",
     [
-        ({"type": "triangle", "vertices": [[0, 0, 0], [1, 0, 0], [0, 1, 0]]}, _WHITE),
-        ({"type": "mesh", "file": "bunny.obj"}, _WHITE),
-        ({"type": "constant-medium", "density": 0.01,
-          "shape": {"type": "sphere", "center": [0, 0, 0], "radius": 1}}, _WHITE),
-        ({"type": "sphere", "center": [0, 0, 0], "radius": 1, "translate": [1, 0, 0]}, _WHITE),
-        ({"type": "moving-sphere", "center0": [0, 0, 0], "center1": [1, 0, 0],
-          "radius": 1}, _WHITE),
-        ({"type": "sphere", "center": [0, 0, 0], "radius": 1},
-         {"type": "isotropic", "albedo": {"type": "solid-color", "color": [1, 1, 1]}}),
+        [_IMPORTANT_TRIANGLE],
+        [{"shape": _BUNNY, "material": _WHITE}] * 7,
+        [{"shape": {"type": "sphere", "center": [0, 0, 0], "radius": 1, "translate": [1, 0, 0]},
+          "material": _WHITE, "important": True}],
+        [{"shape": {"type": "moving-sphere", "center0": [0, 0, 0], "center1": [1, 0, 0],
+                    "radius": 1}, "material": _WHITE}],
     ],
-    ids=["triangle", "mesh", "constant-medium", "transform", "moving-sphere", "isotropic"],
+    # a triangle light, a cluster-size mesh, a transformed light
+    ids=["triangle", "mesh", "transform", "moving-sphere"],
 )
-def test_unported_surface_raises(shape, material):
-    param = {
-        "renderer": {"width": 8, "height": 8},
-        "camera": _CAMERA,
-        "objects": [{"shape": shape, "material": material}],
-    }
+def test_unported_surface_raises(objects):
+    """What the port cannot draw yet raises when the scene is built or,
+    for lights, at the first render, instead of drawing something else:
+    triangle and transformed lights, meshes above SWEEP_MAX_TRIS (7
+    bunnies, 34,776 triangles) and moving spheres."""
+    param = {"renderer": {"width": 4, "height": 4, "max_depth": 1}, "camera": _CAMERA,
+             "objects": objects}
     with pytest.raises(NotImplementedError, match="not ported yet, see ROADMAP"):
-        build_scene(param, base_dir="data")
+        bundle = build_scene(param, base_dir="data")
+        prt.Renderer(bundle.renderer, bundle.camera, bundle.scene, device="cpu").render(0)
 
 
 def test_cuboid_checker_scene_equals_jax():
