@@ -4,8 +4,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
   1. build the kernels with nvcc for sm_90a, one nvcc per source, in
-     parallel: K1 and K3 phase A (csrc/intersect.cu), K2 scatter-add
-     (csrc/scatter.cu) and K5 triangle sweep (csrc/triangles.cu);
+     parallel: K1, K3 and K4 phase A (csrc/intersect.cu), K2 scatter-add
+     (csrc/scatter.cu), K5 triangle sweep and K6 cluster sweep
+     (csrc/triangles.cu); ptxas statistics printed;
   2. K1 against its plain PyTorch version on the card, for the 1024x1024
      zy camera rays and 65,536 random rays (numpy seed 0): hit/miss,
      kind and index equal, t to rtol 1e-5;
@@ -53,11 +54,35 @@ Phases (any failure raises and exits non-zero):
  13. timings: ms per 800x800 depth-50 pass, segments per second, K3 and
      K5 against their plain versions on a 65,536-ray tile (CUDA events
      and torch.profiler device time), the device's busy share over a
-     profiled 128x128 depth-50 pass.
+     profiled 128x128 depth-50 pass;
+ 14. K4 and K6 are among the builds of phase 1 (ptxas counts) and load;
+ 15. K6 against its plain version (cluster_sweep_plain) on the 512x512
+     camera rays of C6 (scenes.bunny_grid: 79,488 triangles, 621
+     clusters of 128), 65,536 rays aimed at the grid and 65,536 rays on
+     27 bunnies (1,048 clusters, K7's case): hit/miss and index equal, t
+     to rtol 1e-6; the hit share and the share of (block, cluster) and
+     (ray, cluster) pairs the cull let through;
+ 16. the C6 path: Renderer(512x512, default depth 20), render(k) for
+     k = 0..2 -- finite, non-negative, mean in C6_MEAN, render(0)
+     deterministic, K6 launched and K5 not; 32x32 depth-1 card == CPU;
+ 17. K4 against its plain version on the 384x384 camera rays of the
+     motion scene (scenes.motion_blur) at their own shutter times, and
+     65,536 random rays at seeded times: kind, index equal, t rtol 1e-5;
+ 18. the motion path: Renderer(384x384, depth 8), render(k) for
+     k = 0..2 -- as phase 16 with MB_MEAN, K4 launched and K1 not;
+     128x128 compacted == dense; 32x32 depth-1 card == CPU;
+ 19. timings: ms per pass and segments/s of both scenes, K6 and K4
+     against their plain versions (CUDA events and torch.profiler), the
+     device's busy share over profiled 128x128 passes of both.
+Every kernel time comes with its bound (bound()): the larger of its
+operations over the float32 peak and its bytes over the memory rate,
+counted from this run's inputs (for K6 the pairs its cull let through).
 The last lines are a JSON kernel record (K1 once per zy path, with the
 launches of the forward render of phase 3 and of the fwd+bwd of phase
-7, K2 with those of phase 7, and K3 and K5 with those of phase 11), the
-card's name and power limit, and a JSON device record.
+7, K2 with those of phase 7 and the time of index_add_ on its rows, K3
+and K5 with those of phase 11, K6 with those of phase 16, K4 with those
+of phase 18), the card's name and power limit, and a JSON device
+record.
 """
 
 from __future__ import annotations
@@ -73,6 +98,26 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SIZE, DEPTH, TILE = 1024, 20, 65536  # zy at full size, as bench.py measures it
 SJ_SIZE, SJ_DEPTH = 800, 50  # data/scene.json at its own settings
 SJ_MEAN = (0.55, 0.65)  # per-pass image mean at 800^2 (JAX CPU renders: 0.58-0.61)
+C6_SIZE = 512  # C6 (examples/render_baselines.py:scene_c6) at its own 512^2, default depth 20
+# per-pass image mean; tests/test_torch_clusters.py holds JAX's 32^2 renders inside it
+C6_MEAN = (0.34, 0.39)
+MB_SIZE, MB_DEPTH = 384, 8  # examples/motion_blur.py at its own settings
+# per-pass image mean, from JAX CPU renders without XLA's fusion (jax.disable_jit):
+# jitted XLA-CPU fuses p = ro + rd t into an FMA, which flips the checker floor's
+# cells on its zero plane (ROADMAP Queue 3); tests/test_torch_motion.py holds
+# JAX's unfused 32^2 renders inside this range
+MB_MEAN = (0.34, 0.40)
+# The least time a kernel could take: the H100 SXM data sheet's float32
+# rate outside the tensor cores and its memory rate.  Operations per test,
+# counted from the plain version's arithmetic (products, sums, divisions,
+# square roots; compares left out):
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+SPHERE_FLOPS = 20  # oc, half_b, c, disc, sqrt, two roots
+RECT_FLOPS = 36  # plane t, then both in-plane coordinates
+TF_FLOPS = 45  # a row's object ray: inv ro + inv_t, inv rd, its norm, the division
+MOTION_FLOPS = 6  # c + t_ray v
+TRI_FLOPS = 40  # det, 1/det, u, v, t of the triple-product form
+SLAB_FLOPS = 12  # a cluster AABB's six differences and six products
 
 
 def check(ok: bool, what: str) -> None:
@@ -86,7 +131,8 @@ def reset_counts() -> None:
     from ray_tracing_tpu_torch.ops import cuda_scatter as cs
     from ray_tracing_tpu_torch.ops import cuda_triangles as ct
 
-    ci.LAUNCHES = ci.TF_LAUNCHES = cs.LAUNCHES = ct.LAUNCHES = 0
+    ci.LAUNCHES = ci.TF_LAUNCHES = ci.MOTION_LAUNCHES = cs.LAUNCHES = 0
+    ct.LAUNCHES = ct.CL_LAUNCHES = 0
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -419,11 +465,17 @@ def gradient_phases(scene, bundle, smi: str) -> dict:
     before = cs.LAUNCHES
     run_plain = lambda: [cs.scatter_add_plain(gt, *rows_s) for rows_s in tile_rows]
     run_kernel = lambda: [cs.scatter_add_cuda(gt, *rows_s) for rows_s in tile_rows]
+    # the one PyTorch call that computes the same function, index_add_, on
+    # the live rows (selected before the timing)
+    live_rows = [(t[m & (t >= 0)].long(), c[m & (t >= 0)]) for t, c, m in tile_rows]
+    run_library = lambda: [gt.index_add_(0, t, c) for t, c in live_rows]
     plain_ms = [cuda_ms(run_plain, 20)]
     kernel_ms = [cuda_ms(run_kernel, 50) for _ in range(2)]
+    library_ms = [cuda_ms(run_library, 50) for _ in range(2)]
     plain_ms.append(cuda_ms(run_plain, 20))
     _, k_dev = profile_device(lambda: [run_kernel() for _ in range(10)])
     _, p_dev = profile_device(lambda: [run_plain() for _ in range(10)])
+    _, l_dev = profile_device(lambda: [run_library() for _ in range(10)])
     cs.LAUNCHES = before
     tile_wall, tile_dev = profile_device(
         lambda: grad_pass(params, scene, ro[:TILE], rd[:TILE], k_trace,
@@ -435,14 +487,20 @@ def gradient_phases(scene, bundle, smi: str) -> dict:
     print(f"[8] split of one pass: taped forward {fwd_ms!r} ms, sweep {sweep_ms!r} ms, "
           f"tangent pass {tangent_ms!r} ms")
     n_rows = sum(t.shape[0] for t, _, _ in tile_rows)
-    n_live = sum(int(m.sum()) for _, _, m in tile_rows)
+    n_live = sum(t.shape[0] for t, _ in live_rows)
+    # rows in (texel 4 B, contribution 12 B, mask 1 B); each touched texel's
+    # three sums read and written once; three adds per live row
+    touched = sum(int(torch.unique(t).numel()) for t, _ in live_rows)
+    k2_bound = bound(3 * n_live, 17 * n_rows + 24 * touched)
     print(f"[8] K2 on one zy tile's sweep rows ({len(tile_rows)} calls, {n_rows} rows, "
-          f"{n_live} live): kernel {kernel_ms!r} ms, plain {plain_ms!r} ms (plain, kernel, "
-          f"kernel, plain)")
+          f"{n_live} live, {touched} texels touched): kernel {kernel_ms!r} ms, plain {plain_ms!r} "
+          f"ms (plain, kernel, kernel, plain); index_add_ on the live rows {library_ms!r} ms; "
+          f"bound {k2_bound[0]!r} ms by {k2_bound[1]}")
     if k_dev and p_dev and tile_dev:
         print(f"[8] device time per tile's rows (torch.profiler, 10 runs): kernel "
               f"{sum(ms for _, ms in k_dev.values()) / 10!r} ms, plain "
-              f"{sum(ms for _, ms in p_dev.values()) / 10!r} ms")
+              f"{sum(ms for _, ms in p_dev.values()) / 10!r} ms, index_add_ "
+              f"{sum(ms for _, ms in l_dev.values()) / 10 if l_dev else 'not measured'!r} ms")
         busy = sum(ms for _, ms in tile_dev.values())
         print(f"[8] profiled fwd+bwd of one {TILE}-ray tile: wall {tile_wall!r} ms, device busy "
               f"{busy!r} ms ({busy / tile_wall!r} of wall), "
@@ -451,7 +509,8 @@ def gradient_phases(scene, bundle, smi: str) -> dict:
             print(f"[8]   {ms!r} ms in {c} launches: {name[:90]}")
     else:
         print("[8] torch.profiler saw no device time: device share not measured")
-    return dict(launches, k2_err=k2_err, k2_ms=sum(kernel_ms) / 2, k2_plain_ms=sum(plain_ms) / 2)
+    return dict(launches, k2_err=k2_err, k2_ms=sum(kernel_ms) / 2, k2_plain_ms=sum(plain_ms) / 2,
+                k2_library_ms=sum(library_ms) / 2, k2_bound=k2_bound)
 
 
 def bunny_rays(n: int, seed: int):
@@ -651,9 +710,364 @@ def scene_json_phases(smi: str) -> dict:
             print(f"[13]   {ms!r} ms in {n} launches: {name[:90]}")
     else:
         print("[13] torch.profiler saw no device time in the 128^2 pass: busy share not measured")
+    k3_bound = phase_a_bound(ci, sph, rect, TILE)
+    k5_bound = sweep_bound(TILE, scene.n_triangles, TILE * scene.n_triangles)
+    print(f"[13] bounds: K3 {k3_bound[0]!r} ms by {k3_bound[1]}, K5 {k5_bound[0]!r} ms by "
+          f"{k5_bound[1]}")
     return dict(launches=launches, k3_err=k3_err, k5_err=k5_err,
                 k3_ms=sum(k3_kernel) / 2, k3_plain_ms=sum(k3_plain) / 2,
-                k5_ms=sum(k5_kernel) / 2, k5_plain_ms=sum(k5_plain) / 2)
+                k5_ms=sum(k5_kernel) / 2, k5_plain_ms=sum(k5_plain) / 2,
+                k3_bound=k3_bound, k5_bound=k5_bound)
+
+
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of ``flops`` over the float32 peak and ``nbytes`` over the memory rate."""
+    f_ms, b_ms = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (f_ms, "operations") if f_ms >= b_ms else (b_ms, "bytes")
+
+
+def phase_a_bound(ci, sph, rect, n: int):
+    """bound() of one phase-A launch over ``n`` rays: rays (24 B) and a
+    moving table's t_ray (4 B) in, winners (12 B) out, the tables once;
+    per ray every sphere and rect test, with a transform or motion where
+    the table carries one."""
+    motion = sph.shape[1] == ci.SPHERE_COLS + ci.MOTION_COLS
+    per_sphere = SPHERE_FLOPS + (TF_FLOPS if sph.shape[1] == ci.SPHERE_COLS + ci.TF_COLS else 0) \
+        + (MOTION_FLOPS if motion else 0)
+    per_rect = RECT_FLOPS + (TF_FLOPS if rect.shape[1] != ci.RECT_COLS else 0)
+    flops = n * (sph.shape[0] * per_sphere + rect.shape[0] * per_rect)
+    return bound(flops, n * (36 + (4 if motion else 0)) + 4 * (sph.numel() + rect.numel()))
+
+
+def sweep_bound(n: int, n_tri: int, pairs: int, n_clusters: int = 0):
+    """bound() of a triangle sweep over ``n`` rays: rays (24 B) in,
+    winners (9 B) out, the (T, 16) table and any (Kc, 6) boxes once;
+    ``pairs`` ray-triangle tests and a slab test per ray and cluster."""
+    flops = pairs * TRI_FLOPS + n * n_clusters * SLAB_FLOPS
+    return bound(flops, n * 33 + 64 * n_tri + 24 * n_clusters)
+
+
+def grid_rays(n: int, seed: int):
+    """Rays from around C6's camera aimed at random points of the grid's
+    box (numpy, seeded)."""
+    import numpy as np
+    import torch
+
+    r = np.random.RandomState(seed)
+    ro = np.array([-0.7, 0.8, 1.2]) + r.uniform(-0.2, 0.2, (n, 3))
+    rd = r.uniform([-0.5, 0.03, -0.5], [0.5, 0.19, 0.5], (n, 3)) - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    return (torch.from_numpy(ro.astype(np.float32)).cuda(),
+            torch.from_numpy(rd.astype(np.float32)).cuda())
+
+
+def copies_rays(n: int, seed: int):
+    """Rays from above the 27-bunny grid of scenes.bunny_copies, aimed down
+    at it (numpy, seeded)."""
+    import numpy as np
+    import torch
+
+    r = np.random.RandomState(seed)
+    ro = r.uniform([-0.9, 0.6, -0.9], [0.9, 0.8, 0.9], (n, 3))
+    rd = r.uniform([-0.9, 0.0, -0.9], [0.9, 0.15, 0.9], (n, 3)) - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    return (torch.from_numpy(ro.astype(np.float32)).cuda(),
+            torch.from_numpy(rd.astype(np.float32)).cuda())
+
+
+def compare_k6(ct, tr, ro, rd, what: str):
+    """K6 against cluster_sweep_plain (in 65,536-ray slices) on the same
+    card tensors; returns (largest |dt| over hits, found per ray)."""
+    import torch
+
+    tri, aabb = ct.pack_triangle_table(tr), ct.pack_cluster_aabbs(tr)
+    stats = torch.zeros(3, dtype=torch.int32, device=ro.device)
+    before = ct.CL_LAUNCHES
+    t, idx, found = ct.cluster_sweep_cuda(tri, aabb, tr.sw_origin, ro, rd, 1e-3, float("inf"),
+                                          stats)
+    torch.cuda.synchronize()
+    check(ct.CL_LAUNCHES == before + 1, "K6 launched")
+    plain = [ct.cluster_sweep_plain(tr, ro[s:s + TILE], rd[s:s + TILE], 1e-3, float("inf"))
+             for s in range(0, ro.shape[0], TILE)]
+    pt, pidx, pfound = (torch.cat(x) for x in zip(*plain))
+    both = found & pfound
+    n_t = int((~torch.isclose(t[both], pt[both], rtol=1e-6, atol=0.0)).sum())
+    err = float((t[both] - pt[both]).abs().max()) if bool(both.any()) else 0.0
+    n, kc = ro.shape[0], aabb.shape[0]
+    blocks = -(-n // ct.CL_THREADS)
+    loads, sweeps, needs = (int(x) for x in stats.tolist())
+    share = float(found.float().mean())
+    print(f"[15] K6 vs plain, {what}: {n} rays x {tr.v0.shape[0]} triangles ({kc} clusters of "
+          f"{ct.CL_CHUNK}), {int(found.sum())} on the mesh ({share:.4f}); mismatches "
+          f"found={int((found != pfound).sum())} idx={int((idx[both] != pidx[both]).sum())} "
+          f"t(rtol 1e-6)={n_t}; max |dt| = {err!r}; t bit-equal on hits "
+          f"{torch.equal(t[both], pt[both])}; the cull let through {loads} of {blocks * kc} "
+          f"(block, cluster) pairs ({loads / (blocks * kc):.4f}), {sweeps} of "
+          f"{blocks * (ct.CL_THREADS // 32) * kc} (warp, cluster) sweeps, {needs} of {n * kc} "
+          f"(ray, cluster) pairs ({needs / (n * kc):.4f})")
+    check(torch.equal(found, pfound) and torch.equal(idx[both], pidx[both]) and n_t == 0,
+          f"K6 disagrees with its plain version on {what}")
+    check(share > 0.01, f"more than 1 % of the rays hit the mesh on {what}")
+    return err, found
+
+
+def compare_k4(ci, sph, rect, ro, rd, t_ray, what: str) -> float:
+    """K4 against phase_a_plain with the rays' shutter times (in 65,536-ray
+    slices); returns the largest |dt| over hit rays."""
+    import torch
+
+    before = ci.MOTION_LAUNCHES
+    t, kind, idx = ci.phase_a_cuda(sph, rect, ro, rd, 1e-3, float("inf"), t_ray)
+    torch.cuda.synchronize()
+    check(ci.MOTION_LAUNCHES == before + 1, "the moving sphere table launched K4")
+    plain = [ci.phase_a_plain(sph, rect, ro[s:s + TILE], rd[s:s + TILE], 1e-3, float("inf"),
+                              t_ray[s:s + TILE])
+             for s in range(0, ro.shape[0], TILE)]
+    pt, pkind, pidx = (torch.cat(x) for x in zip(*plain))
+    found, pfound = kind >= 0, pkind >= 0
+    both = found & pfound
+    n_t = int((~torch.isclose(t[both], pt[both], rtol=1e-5, atol=0.0)).sum())
+    err = float((t[both] - pt[both]).abs().max()) if bool(both.any()) else 0.0
+    moving = int(((kind == 0) & (idx > 0)).sum())
+    print(f"[17] K4 vs plain, {what}: {ro.shape[0]} rays, {int(found.sum())} hits, {moving} on the "
+          f"moving spheres; mismatches found={int((found != pfound).sum())} "
+          f"kind={int((kind != pkind).sum())} idx={int((idx != pidx).sum())} t(rtol 1e-5)={n_t}; "
+          f"max |dt| = {err!r}; t bit-equal {torch.equal(t, pt)}")
+    check(torch.equal(kind, pkind) and torch.equal(idx, pidx) and n_t == 0,
+          f"K4 disagrees with its plain version on {what}")
+    check(moving > 0, f"K4 winners include the moving spheres on {what}")
+    return err
+
+
+def check_images(images, size: int, mean_range, tag: str, name: str) -> None:
+    """Finite, non-negative (size, size, 3) card images with a mean in
+    ``mean_range``."""
+    import torch
+
+    for k, img in enumerate(images):
+        mean = float(img.double().mean())
+        print(f"[{tag}] pass {k}: mean {mean!r} max {float(img.max())!r}")
+        check(img.shape == (size, size, 3) and img.device.type == "cuda",
+              f"{name} pass {k} shape/device")
+        check(bool(torch.isfinite(img).all()) and bool((img >= 0).all()),
+              f"{name} pass {k} finite, >= 0")
+        check(mean_range[0] < mean < mean_range[1], f"{name} pass {k} mean {mean} in {mean_range}")
+
+
+def pass_timings(renderer, keys):
+    """(ms per pass at each key, segments per second of one more pass),
+    CUDA events, after the caller's warm-up."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    pass_ms = []
+    for key in keys:
+        start.record()
+        renderer.render(key)
+        end.record()
+        torch.cuda.synchronize()
+        pass_ms.append(start.elapsed_time(end))
+    start.record()
+    _, segments = renderer.render_with_stats(keys[-1] + 1)
+    end.record()
+    torch.cuda.synchronize()
+    return pass_ms, segments, segments / (start.elapsed_time(end) / 1e3)
+
+
+def bunny_grid_phases(smi: str) -> dict:
+    """Phases 15, 16 and C6's part of 19 on the card: K6 against its plain
+    version, the forward render of C6 (scenes.bunny_grid, the 79,488-
+    triangle grid) at 512^2 and the Renderer's default depth, its checks
+    and timings.  Returns the numbers the kernel record needs."""
+    import torch
+    from ray_tracing_tpu_torch import Renderer, RendererParam, scenes
+    from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import cuda_triangles as ct
+    from ray_tracing_tpu_torch.ops import intersect as pi
+    from ray_tracing_tpu_torch.ops import rng
+
+    dev = torch.device("cuda")
+    host_scene, cam_param, param = scenes.bunny_grid()
+    check((param.width, param.height, param.max_depth) == (C6_SIZE, C6_SIZE, None),
+          "C6's own settings are 512^2 at the default depth")
+    scene = host_scene.to(dev)
+    check(pi.mesh_strategy(scene) == "cluster", "C6 takes the cluster sweep")
+    tr = scene.triangles
+
+    # 15. K6 against its plain version
+    cam = Camera.build(cam_param, 1.0).to(dev)
+    ro, rd, _, _ = camera_rays(cam, rng.key(0), C6_SIZE, C6_SIZE)
+    ro, rd = ro.contiguous(), rd.contiguous()
+    k6_err, found = compare_k6(ct, tr, ro, rd, f"{C6_SIZE}^2 C6 camera rays")
+    # the main path's tile of camera rays with the most mesh hits (the
+    # first tiles look at the sky), where K6 is timed below
+    busiest = int(found.reshape(-1, TILE).sum(dim=1).argmax())
+    tile = slice(busiest * TILE, (busiest + 1) * TILE)
+    g_ro, g_rd = grid_rays(TILE, 0)
+    k6_err = max(k6_err, compare_k6(ct, tr, g_ro, g_rd,
+                                    f"{TILE} rays aimed at the grid (seed 0)")[0])
+    copies = scenes.bunny_copies(27).to(dev).triangles
+    check(ct.pack_cluster_aabbs(copies).shape[0] > 1024, "27 copies pass 1024 clusters")
+    c_ro, c_rd = copies_rays(TILE, 2)
+    k6_err = max(k6_err, compare_k6(ct, copies, c_ro, c_rd,
+                                    f"{TILE} rays on 27 bunnies (seed 2; K7's case)")[0])
+
+    # 16. the main path
+    renderer = Renderer(param, cam_param, host_scene, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    images = [renderer.render(k) for k in range(3)]
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {"k1": ci.LAUNCHES, "k5": ct.LAUNCHES, "k6": ct.CL_LAUNCHES}
+    print(f"[16] rendered 3 passes of C6 ({scene.n_triangles} triangles) at {C6_SIZE}^2 depth "
+          f"{renderer.max_depth} (tile {renderer.tile_size}) in {main_s:.2f} s; K1 launches "
+          f"{ci.LAUNCHES}, K5 launches {ct.LAUNCHES}, K6 launches {ct.CL_LAUNCHES}")
+    check(ct.CL_LAUNCHES > 0 and ct.LAUNCHES == 0, "the C6 path launched K6 and not K5")
+    check_images(images, C6_SIZE, C6_MEAN, "16", "C6")
+    check(torch.equal(images[0], renderer.render(0)), "C6 render(0) twice is equal")
+    print("[16] render(0) repeated: torch.equal")
+    tiny = RendererParam(32, 32, max_depth=1)
+    on_card = Renderer(tiny, cam_param, host_scene, device="cuda").render(0).cpu()
+    on_cpu = Renderer(tiny, cam_param, host_scene, device="cpu").render(0)
+    check(torch.equal(on_card, on_cpu), "C6 depth-1 image on the card equals the CPU render")
+    print("[16] 32^2 depth 1: the card image equals the CPU render (torch.equal)")
+
+    # 19. timings: the pass, and K6 on the main path's first tile
+    pass_ms, segments, seg_s = pass_timings(renderer, (10, 11))
+    saved = (ci.LAUNCHES, ct.LAUNCHES, ct.CL_LAUNCHES)
+    tri, aabb = ct.pack_triangle_table(tr), ct.pack_cluster_aabbs(tr)
+    k6_args = (tri, aabb, tr.sw_origin, ro[tile], rd[tile], 1e-3, float("inf"))
+    stats = torch.zeros(3, dtype=torch.int32, device=dev)
+    ct.cluster_sweep_cuda(*k6_args, stats)
+    plain = lambda: ct.cluster_sweep_plain(tr, ro[tile], rd[tile], 1e-3, float("inf"))
+    k6_plain = [cuda_ms(plain, 3)]
+    k6_kernel = [cuda_ms(lambda: ct.cluster_sweep_cuda(*k6_args), 20) for _ in range(2)]
+    k6_plain.append(cuda_ms(plain, 3))
+    dev_ms = dict(zip(("k6", "k6_plain"), profile_pair(
+        lambda: ct.cluster_sweep_cuda(*k6_args), plain, 3, "cluster_sweep_kernel")))
+    small_renderer = Renderer(RendererParam(128, 128), cam_param, host_scene, device="cuda")
+    small_renderer.render(30)
+    pass_wall, pass_dev = profile_device(lambda: small_renderer.render(31))
+    ci.LAUNCHES, ct.LAUNCHES, ct.CL_LAUNCHES = saved
+    loads, sweeps, needs = (int(x) for x in stats.tolist())
+    k6_bound = sweep_bound(TILE, tr.v0.shape[0], needs * ct.CL_CHUNK, aabb.shape[0])
+    print(f"[19] card: {smi}")
+    print(f"[19] ms per {C6_SIZE}^2 depth-{renderer.max_depth} C6 pass: {pass_ms!r}; "
+          f"render_with_stats: {segments} segments, {seg_s!r} segments/s")
+    print(f"[19] K6 on C6 camera-ray tile {busiest} ({TILE} rays, "
+          f"{int(found[tile].sum())} on the mesh): kernel {k6_kernel!r} ms, plain "
+          f"{k6_plain!r} ms (plain, kernel, kernel, plain); device ms per call (torch.profiler) "
+          f"{dev_ms!r}; the cull let through {needs} (ray, cluster) pairs ({loads} block loads, "
+          f"{sweeps} warp sweeps); bound {k6_bound[0]!r} ms by {k6_bound[1]}")
+    busy_share(pass_dev, pass_wall, "19", f"128^2 depth-{small_renderer.max_depth} C6 pass")
+    return dict(launches=launches, k6_err=k6_err, k6_ms=sum(k6_kernel) / 2,
+                k6_plain_ms=sum(k6_plain) / 2, k6_bound=k6_bound)
+
+
+def busy_share(pass_dev, pass_wall: float, tag: str, what: str) -> None:
+    """Print a profiled pass's device busy time, share of wall and top
+    kernels, or that the profiler saw no device time."""
+    if not pass_dev:
+        print(f"[{tag}] torch.profiler saw no device time in the {what}: busy share not measured")
+        return
+    busy = sum(ms for _, ms in pass_dev.values())
+    print(f"[{tag}] profiled {what}: wall {pass_wall!r} ms, device busy {busy!r} ms "
+          f"({busy / pass_wall!r} of wall), {sum(n for n, _ in pass_dev.values())} device kernels")
+    for name, (n, ms) in sorted(pass_dev.items(), key=lambda kv: -kv[1][1])[:6]:
+        print(f"[{tag}]   {ms!r} ms in {n} launches: {name[:90]}")
+
+
+def motion_phases(smi: str) -> dict:
+    """Phases 17, 18 and the motion scene's part of 19 on the card: K4
+    against its plain version, the forward render of
+    examples/motion_blur.py (scenes.motion_blur) at 384^2 depth 8, its
+    checks and timings.  Returns the numbers the kernel record needs."""
+    import numpy as np
+    import torch
+    from ray_tracing_tpu_torch import Renderer, RendererParam, scenes
+    from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import rng
+
+    dev = torch.device("cuda")
+    host_scene, cam_param, param = scenes.motion_blur()
+    check((param.width, param.height, param.max_depth) == (MB_SIZE, MB_SIZE, MB_DEPTH),
+          "the motion scene's own settings are 384^2 depth 8")
+    scene = host_scene.to(dev)
+    sph, rect = ci.pack_primitive_tables(scene)
+    check(sph.shape[1] == ci.SPHERE_COLS + ci.MOTION_COLS, "the sphere table moves")
+
+    # 17. K4 against its plain version, the camera rays at their own times
+    cam = Camera.build(cam_param, 1.0).to(dev)
+    ro, rd, _, k_trace = camera_rays(cam, rng.key(0), MB_SIZE, MB_SIZE)
+    n = MB_SIZE * MB_SIZE
+    shutter = torch.stack([cam.time0, cam.time1])
+    t_ray = rng.ray_time(k_trace, torch.arange(n, device=dev), shutter)
+    k4_err = compare_k4(ci, sph, rect, ro.contiguous(), rd.contiguous(), t_ray,
+                        f"{MB_SIZE}^2 motion camera rays")
+    r = np.random.RandomState(0)
+    m_ro = r.uniform([-3, 0.1, -3], [3, 2.5, 3], (TILE, 3))
+    m_rd = r.uniform([-1.5, 0.2, -0.5], [2.5, 0.7, 0.5], (TILE, 3)) - m_ro
+    m_rd /= np.linalg.norm(m_rd, axis=1, keepdims=True)
+    m_ro, m_rd, m_t = (torch.from_numpy(x.astype(np.float32)).to(dev)
+                       for x in (m_ro, m_rd, r.uniform(0.0, 1.0, TILE)))
+    k4_err = max(k4_err, compare_k4(ci, sph, rect, m_ro, m_rd, m_t,
+                                    f"{TILE} random rays (seed 0) at seeded times"))
+
+    # 18. the main path
+    renderer = Renderer(param, cam_param, host_scene, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    images = [renderer.render(k) for k in range(3)]
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {"k1": ci.LAUNCHES, "k4": ci.MOTION_LAUNCHES}
+    print(f"[18] rendered 3 passes of the motion scene at {MB_SIZE}^2 depth {MB_DEPTH} (tile "
+          f"{renderer.tile_size}) in {main_s:.2f} s; K1 launches {ci.LAUNCHES}, K3 launches "
+          f"{ci.TF_LAUNCHES}, K4 launches {ci.MOTION_LAUNCHES}")
+    check(ci.MOTION_LAUNCHES > 0 and ci.LAUNCHES == 0, "the motion path launched K4 and not K1")
+    check_images(images, MB_SIZE, MB_MEAN, "18", "motion")
+    check(torch.equal(images[0], renderer.render(0)), "motion render(0) twice is equal")
+    print("[18] render(0) repeated: torch.equal")
+    small = RendererParam(128, 128, max_depth=MB_DEPTH)
+    small_renderer = Renderer(small, cam_param, host_scene, device="cuda")
+    img_c, seg_c = small_renderer.render_with_stats(7)
+    img_d, seg_d = Renderer(small, cam_param, host_scene, device="cuda",
+                            compaction=False).render_with_stats(7)
+    check(torch.equal(img_c, img_d) and seg_c == seg_d, "motion compacted equals dense")
+    print(f"[18] 128^2 depth {MB_DEPTH}: compacted == dense (torch.equal), {seg_c} segments each")
+    tiny = RendererParam(32, 32, max_depth=1)
+    on_card = Renderer(tiny, cam_param, host_scene, device="cuda").render(0).cpu()
+    on_cpu = Renderer(tiny, cam_param, host_scene, device="cpu").render(0)
+    check(torch.equal(on_card, on_cpu), "motion depth-1 image on the card equals the CPU render")
+    print("[18] 32^2 depth 1: the card image equals the CPU render (torch.equal)")
+
+    # 19. timings: the pass, and K4 on the random tile
+    pass_ms, segments, seg_s = pass_timings(renderer, (10, 11))
+    saved = (ci.LAUNCHES, ci.TF_LAUNCHES, ci.MOTION_LAUNCHES)
+    k4_args = (sph, rect, m_ro, m_rd, 1e-3, float("inf"), m_t)
+    k4_plain = [cuda_ms(lambda: ci.phase_a_plain(*k4_args), 20)]
+    k4_kernel = [cuda_ms(lambda: ci.phase_a_cuda(*k4_args), 100) for _ in range(2)]
+    k4_plain.append(cuda_ms(lambda: ci.phase_a_plain(*k4_args), 20))
+    dev_ms = dict(zip(("k4", "k4_plain"), profile_pair(
+        lambda: ci.phase_a_cuda(*k4_args), lambda: ci.phase_a_plain(*k4_args), 10,
+        "phase_a_kernel")))
+    small_renderer.render(30)
+    pass_wall, pass_dev = profile_device(lambda: small_renderer.render(31))
+    ci.LAUNCHES, ci.TF_LAUNCHES, ci.MOTION_LAUNCHES = saved
+    k4_bound = phase_a_bound(ci, sph, rect, TILE)
+    print(f"[19] card: {smi}")
+    print(f"[19] ms per {MB_SIZE}^2 depth-{MB_DEPTH} motion pass: {pass_ms!r}; "
+          f"render_with_stats: {segments} segments, {seg_s!r} segments/s")
+    print(f"[19] K4 on a {TILE}-ray tile: kernel {k4_kernel!r} ms, plain {k4_plain!r} ms (plain, "
+          f"kernel, kernel, plain); device ms per call (torch.profiler) {dev_ms!r}; bound "
+          f"{k4_bound[0]!r} ms by {k4_bound[1]}")
+    busy_share(pass_dev, pass_wall, "19", f"128^2 depth-{MB_DEPTH} motion pass")
+    return dict(launches=launches, k4_err=k4_err, k4_ms=sum(k4_kernel) / 2,
+                k4_plain_ms=sum(k4_plain) / 2, k4_bound=k4_bound)
 
 
 def main() -> int:
@@ -679,7 +1093,7 @@ def main() -> int:
     bundle = load_scene_json(os.path.join(ROOT, "data", "zy_scene.json"))
     scene = bundle.scene.to(dev)
 
-    # 1. build K1/K3, K2 and K5, one nvcc per source, in parallel
+    # 1 and 14. build K1/K3/K4, K2 and K5/K6, one nvcc per source, in parallel
     t0 = time.perf_counter()
     with ThreadPoolExecutor(3) as pool:
         libs = list(pool.map(_build.build, [ci.SOURCE, cs.SOURCE, ct.SOURCE]))
@@ -689,6 +1103,15 @@ def main() -> int:
         log = lib.with_suffix(".log")
         if log.exists():
             print(log.read_text().strip())
+    # 14. this slice's kernels are among the builds: K4 as the kSphMotion
+    # instances of phase_a_kernel, K6 as cluster_sweep_kernel
+    logs = "".join(lib.with_suffix(".log").read_text() for lib in libs
+                   if lib.with_suffix(".log").exists())
+    k4_built = logs.count("phase_a_kernelILb0ELb0ELb1E") + logs.count("phase_a_kernelILb0ELb1ELb1E")
+    print(f"[14] ptxas compiled {k4_built // 2} K4 instances and "
+          f"{logs.count('cluster_sweep_kernel') // 2} K6 kernel (0 when the libraries were reused)")
+    check(ci._library().phase_a_launch is not None
+          and ct._library().cluster_sweep_launch is not None, "K4 and K6 load")
 
     # 2. K1 against its plain version on the card
     sph, rect = ci.pack_primitive_tables(scene)
@@ -760,6 +1183,7 @@ def main() -> int:
     _, p_dev = profile_device(lambda: [ci.phase_a_plain(*args) for _ in range(20)])
     ci.LAUNCHES = before
     k_ms, p_ms = sum(kernel_ms) / 2, sum(plain_ms) / 2
+    k1_bound = phase_a_bound(ci, sph, rect, 65536)
     small_renderer = Renderer(small, bundle.camera, bundle.scene, device="cuda")
     small_renderer.render(30)
     pass_wall, pass_dev = profile_device(lambda: small_renderer.render(31))
@@ -768,7 +1192,7 @@ def main() -> int:
     print(f"[5] render_with_stats: {segments} segments in {stats_s!r} s = "
           f"{segments / stats_s!r} segments/s")
     print(f"[5] K1 on a 65536-ray tile: kernel {kernel_ms!r} ms, plain {plain_ms!r} ms "
-          f"(plain, kernel, kernel, plain)")
+          f"(plain, kernel, kernel, plain); bound {k1_bound[0]!r} ms by {k1_bound[1]}")
     if k_dev and p_dev:
         print(f"[5] device time per call (torch.profiler, 20 calls): kernel "
               f"{sum(ms for _, ms in k_dev.values()) / 20!r} ms, plain "
@@ -786,57 +1210,41 @@ def main() -> int:
 
     grad = gradient_phases(scene, bundle, smi)
     sj = scene_json_phases(smi)
+    c6 = bunny_grid_phases(smi)
+    mb = motion_phases(smi)
 
-    # one K1 entry per path, each with the count of its own run
-    k1 = {
-        "route": "cuda",
-        "source": "ray_tracing_tpu_torch/csrc/intersect.cu",
-        "replaces": "ray_tracing_tpu/ops/pallas_intersect.py:116",
-        "max_abs_err": err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }
-    k2 = {
-        "name": "scatter_add (K2), fwd+bwd",
-        "route": "cuda",
-        "source": "ray_tracing_tpu_torch/csrc/scatter.cu",
-        "replaces": "ray_tracing_tpu/ops/pallas_scatter.py:82",
-        "launches": grad["k2_launches"],
-        "max_abs_err": grad["k2_err"],
-        "ms": grad["k2_ms"],
-        "plain_ms": grad["k2_plain_ms"],
-    }
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
+        return {"name": name, "route": "cuda", "source": f"ray_tracing_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
+
+    # one K1 entry per zy path, each with the count of its own run
+    intersect = "ray_tracing_tpu/ops/pallas_intersect.py:116"
+    k1 = ("intersect.cu", intersect)
     record = {"kernels": [
-        {"name": "phase_a (K1), forward render", **k1, "launches": launches},
-        {"name": "phase_a (K1), fwd+bwd", **k1, "launches": grad["k1_launches"]},
-        k2,
-        {
-            "name": "phase_a transformed (K3), scene.json forward render",
-            "route": "cuda",
-            "source": "ray_tracing_tpu_torch/csrc/intersect.cu",
-            "replaces": "ray_tracing_tpu/ops/pallas_intersect.py:116",
-            "launches": sj["launches"]["k3"],
-            "max_abs_err": sj["k3_err"],
-            "ms": sj["k3_ms"],
-            "plain_ms": sj["k3_plain_ms"],
-        },
-        {
-            "name": "triangle_sweep (K5), scene.json forward render",
-            "route": "cuda",
-            "source": "ray_tracing_tpu_torch/csrc/triangles.cu",
-            "replaces": "ray_tracing_tpu/ops/pallas_triangles.py:147",
-            "launches": sj["launches"]["k5"],
-            "max_abs_err": sj["k5_err"],
-            "ms": sj["k5_ms"],
-            "plain_ms": sj["k5_plain_ms"],
-        },
+        entry("phase_a (K1), zy forward render", *k1, launches, err, k_ms, p_ms, k1_bound),
+        entry("phase_a (K1), zy fwd+bwd", *k1, grad["k1_launches"], err, k_ms, p_ms, k1_bound),
+        entry("scatter_add (K2), zy fwd+bwd", "scatter.cu",
+              "ray_tracing_tpu/ops/pallas_scatter.py:82", grad["k2_launches"], grad["k2_err"],
+              grad["k2_ms"], grad["k2_plain_ms"], grad["k2_bound"], grad["k2_library_ms"]),
+        entry("phase_a transformed (K3), scene.json forward render", "intersect.cu", intersect,
+              sj["launches"]["k3"], sj["k3_err"], sj["k3_ms"], sj["k3_plain_ms"], sj["k3_bound"]),
+        entry("triangle_sweep (K5), scene.json forward render", "triangles.cu",
+              "ray_tracing_tpu/ops/pallas_triangles.py:147", sj["launches"]["k5"], sj["k5_err"],
+              sj["k5_ms"], sj["k5_plain_ms"], sj["k5_bound"]),
+        entry("phase_a motion (K4), motion-blur forward render", "intersect.cu",
+              "ray_tracing_tpu/ops/pallas_intersect.py:127", mb["launches"]["k4"], mb["k4_err"],
+              mb["k4_ms"], mb["k4_plain_ms"], mb["k4_bound"]),
+        entry("cluster_sweep (K6, serving K7's case), C6 forward render", "triangles.cu",
+              "ray_tracing_tpu/ops/pallas_triangles.py:364 and :287", c6["launches"]["k6"],
+              c6["k6_err"], c6["k6_ms"], c6["k6_plain_ms"], c6["k6_bound"]),
     ]}
     print(json.dumps(record))
     print(smi)
-    # the run uses one device, cuda:0 (the count of visible devices is
-    # printed on the first line)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
     }}))
     return 0
 

@@ -1,19 +1,21 @@
-// K1 and K3: phase A of the scene intersection -- each ray's nearest
+// K1, K3 and K4: phase A of the scene intersection -- each ray's nearest
 // sphere root and nearest axis-aligned rect hit in [t_min, t_max].
 //
 // Replaces ray_tracing_tpu/ops/pallas_intersect.py:_kernel: K1 is its
 // plain variant, K3 its transformed variants (sph_tf / rect_tf, rows
-// tested in object space through _object_ray).  Motion blur (K4) is not
-// here.  The plain PyTorch version of the same function is phase_a_plain
-// in ray_tracing_tpu_torch/ops/cuda_intersect.py.
+// tested in object space through _object_ray), K4 its motion variant
+// (sph_motion: each sphere at the ray's own centre c + t_ray v).  The
+// plain PyTorch version of the same function is phase_a_plain in
+// ray_tracing_tpu_torch/ops/cuda_intersect.py.
 //
 // What bounds it on an H100: each ray reads its origin and direction
 // (24 B) and writes its winner (t, kind, idx: 12 B), 36 B of device-memory
-// traffic per ray, against ~20 flops per primitive, ~60 with a transform.
-// The primitive tables (spheres (S, 4) = [cx cy cz r], rects (R, 14) =
-// [ua ub uk a0 a1 b0 b1 k], each row followed by [inv(9) inv_t(3)] when
-// its table is transformed) are staged into shared memory once per block,
-// so they cost no device-memory traffic per ray.
+// traffic per ray (K4 reads 4 B more, its t_ray), against ~20 flops per
+// primitive, ~60 with a transform.  The primitive tables (spheres (S, 4) =
+// [cx cy cz r], rects (R, 14) = [ua ub uk a0 a1 b0 b1 k], each row
+// followed by [inv(9) inv_t(3)] when its table is transformed; a moving
+// sphere table (S, 7) = [cx cy cz r vx vy vz]) are staged into shared
+// memory once per block, so they cost no device-memory traffic per ray.
 //
 // Design: one thread per ray, rays as contiguous (N, 3) float32 with the
 // ragged tail masked (no padding).  The loop order and the tie rule are
@@ -29,6 +31,11 @@
 // roots are bounded by [t_min nrm, t_max nrm] and the world t = t_obj / nrm
 // then competes with strict <.  Bounding object-space roots by best_t nrm
 // instead, as the TPU kernel does, can round to another winner.
+//
+// K4 computes each centre as c[j] + t_ray v[j] (the product, then the sum,
+// as the plain version does) and tests the sphere there.  Moving and
+// transformed spheres never share a table (the compiler refuses it), so
+// kSphMotion excludes kSphTf; the rect table may still be transformed.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -39,6 +46,7 @@ constexpr int kThreads = 256;
 constexpr int kSphereCols = 4;
 constexpr int kRectCols = 14;
 constexpr int kTfCols = 12;
+constexpr int kMotionCols = 3;
 constexpr int kKindSphere = 0;
 constexpr int kKindRect = 2;
 
@@ -97,15 +105,17 @@ __device__ __forceinline__ bool rect_hit(const Ray& r, const float* p,
   return a >= p[9] && a <= p[10] && b >= p[11] && b <= p[12];
 }
 
-template <bool kSphTf, bool kRectTf>
+template <bool kSphTf, bool kRectTf, bool kSphMotion>
 __global__ void __launch_bounds__(kThreads) phase_a_kernel(
     const float* __restrict__ sph, int n_sph,
     const float* __restrict__ rect, int n_rect,
-    const float* __restrict__ ro, const float* __restrict__ rd, int n,
-    float t_min, float t_max,
+    const float* __restrict__ ro, const float* __restrict__ rd,
+    const float* __restrict__ t_ray, int n, float t_min, float t_max,
     float* __restrict__ t_out, int* __restrict__ kind_out,
     int* __restrict__ idx_out) {
-  constexpr int kSph = kSphereCols + (kSphTf ? kTfCols : 0);
+  static_assert(!(kSphTf && kSphMotion), "moving spheres are never transformed");
+  constexpr int kSph =
+      kSphereCols + (kSphTf ? kTfCols : 0) + (kSphMotion ? kMotionCols : 0);
   constexpr int kRect = kRectCols + (kRectTf ? kTfCols : 0);
   extern __shared__ float tables[];
   float* s_sph = tables;
@@ -122,6 +132,7 @@ __global__ void __launch_bounds__(kThreads) phase_a_kernel(
   if (r >= n) return;
   const Ray w = {ro[3 * r], ro[3 * r + 1], ro[3 * r + 2],
                  rd[3 * r], rd[3 * r + 1], rd[3 * r + 2]};
+  const float tr = kSphMotion ? t_ray[r] : 0.0f;
 
   float best_t = CUDART_INF_F;
   int best_kind = -1;
@@ -141,10 +152,20 @@ __global__ void __launch_bounds__(kThreads) phase_a_kernel(
           best_idx = s;
         }
       }
-    } else if (sphere_hit(w, c, t_min, fminf(best_t, t_max), &t) && t < best_t) {
-      best_t = t;
-      best_kind = kKindSphere;
-      best_idx = s;
+    } else {
+      float moved[4];
+      if (kSphMotion) {
+        moved[0] = c[0] + tr * c[4];
+        moved[1] = c[1] + tr * c[5];
+        moved[2] = c[2] + tr * c[6];
+        moved[3] = c[3];
+      }
+      if (sphere_hit(w, kSphMotion ? moved : c, t_min, fminf(best_t, t_max), &t) &&
+          t < best_t) {
+        best_t = t;
+        best_kind = kKindSphere;
+        best_idx = s;
+      }
     }
   }
 
@@ -173,40 +194,46 @@ __global__ void __launch_bounds__(kThreads) phase_a_kernel(
   idx_out[r] = best_idx;
 }
 
-template <bool kSphTf, bool kRectTf>
+template <bool kSphTf, bool kRectTf, bool kSphMotion>
 int launch(const float* sph, int n_sph, const float* rect, int n_rect,
-           const float* ro, const float* rd, int n, float t_min, float t_max,
-           float* t_out, int* kind_out, int* idx_out, cudaStream_t stream) {
+           const float* ro, const float* rd, const float* t_ray, int n,
+           float t_min, float t_max, float* t_out, int* kind_out, int* idx_out,
+           cudaStream_t stream) {
   const size_t smem =
       sizeof(float) *
-      ((kSphereCols + (kSphTf ? kTfCols : 0)) * static_cast<size_t>(n_sph) +
+      ((kSphereCols + (kSphTf ? kTfCols : 0) + (kSphMotion ? kMotionCols : 0)) *
+           static_cast<size_t>(n_sph) +
        (kRectCols + (kRectTf ? kTfCols : 0)) * static_cast<size_t>(n_rect));
   const int blocks = (n + kThreads - 1) / kThreads;
-  phase_a_kernel<kSphTf, kRectTf><<<blocks, kThreads, smem, stream>>>(
-      sph, n_sph, rect, n_rect, ro, rd, n, t_min, t_max, t_out, kind_out,
+  phase_a_kernel<kSphTf, kRectTf, kSphMotion><<<blocks, kThreads, smem, stream>>>(
+      sph, n_sph, rect, n_rect, ro, rd, t_ray, n, t_min, t_max, t_out, kind_out,
       idx_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches K1 (sph_tf = rect_tf = 0) or a K3 variant on ``stream`` and
-// returns cudaGetLastError() (0 = launched).
+// Launches K1 (no flag set), a K3 variant (sph_tf or rect_tf) or a K4
+// variant (sph_motion, with rect_tf or not; t_ray then holds the n rays'
+// shutter times) on ``stream`` and returns cudaGetLastError() (0 =
+// launched).  sph_tf and sph_motion exclude each other.
 extern "C" int phase_a_launch(const float* sph, int n_sph, int sph_tf,
-                              const float* rect, int n_rect, int rect_tf,
-                              const float* ro, const float* rd, int n,
-                              float t_min, float t_max, float* t_out,
-                              int* kind_out, int* idx_out,
-                              cudaStream_t stream) {
-  if (sph_tf && rect_tf)
-    return launch<true, true>(sph, n_sph, rect, n_rect, ro, rd, n, t_min,
-                              t_max, t_out, kind_out, idx_out, stream);
-  if (sph_tf)
-    return launch<true, false>(sph, n_sph, rect, n_rect, ro, rd, n, t_min,
-                               t_max, t_out, kind_out, idx_out, stream);
-  if (rect_tf)
-    return launch<false, true>(sph, n_sph, rect, n_rect, ro, rd, n, t_min,
-                               t_max, t_out, kind_out, idx_out, stream);
-  return launch<false, false>(sph, n_sph, rect, n_rect, ro, rd, n, t_min,
-                              t_max, t_out, kind_out, idx_out, stream);
+                              int sph_motion, const float* rect, int n_rect,
+                              int rect_tf, const float* ro, const float* rd,
+                              const float* t_ray, int n, float t_min,
+                              float t_max, float* t_out, int* kind_out,
+                              int* idx_out, cudaStream_t stream) {
+  if (sph_tf && sph_motion) return static_cast<int>(cudaErrorInvalidValue);
+#define PHASE_A(TF, RTF, MO)                                                 \
+  return launch<TF, RTF, MO>(sph, n_sph, rect, n_rect, ro, rd, t_ray, n,    \
+                             t_min, t_max, t_out, kind_out, idx_out, stream)
+  if (sph_motion) {
+    if (rect_tf) PHASE_A(false, true, true);
+    PHASE_A(false, false, true);
+  }
+  if (sph_tf && rect_tf) PHASE_A(true, true, false);
+  if (sph_tf) PHASE_A(true, false, false);
+  if (rect_tf) PHASE_A(false, true, false);
+  PHASE_A(false, false, false);
+#undef PHASE_A
 }

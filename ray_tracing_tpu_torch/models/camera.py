@@ -153,8 +153,11 @@ def camera_rays(camera: Camera, key, width: int, height: int, antialias: bool = 
 
 
 def stamp_shutter(scene: SceneData, camera: Camera) -> SceneData:
-    """Motion blur is not ported: a no-op for every scene the port can
-    build, raising for one with moving spheres."""
+    """The scene with the camera's [time0, time1] window as its
+    ``shutter`` when it has moving spheres, from which each ray's time is
+    drawn per ray id (ops/rng.py:ray_time); a motionless scene as it is.
+    The renderer stamps it; ray-level callers (``trace``, the gradient
+    pass) read whatever ``shutter`` the scene carries."""
     if scene.has_motion:
-        raise NotImplementedError("moving spheres are not ported yet, see ROADMAP")
+        return dataclasses.replace(scene, shutter=torch.stack([camera.time0, camera.time1]))
     return scene

@@ -5,14 +5,15 @@ tables, the PyTorch counterpart of ``ray_tracing_tpu/models/compiler.py``
 Host numpy code, copied from the JAX package so that the tables come
 out identical, including the per-texture noise offsets drawn from the
 builder's ``RandomState`` and the Morton order of the triangle table.
-Supported: shapes sphere, xy-rect, yz-rect, zx-rect, cuboid, triangle,
-mesh and constant-medium (over a sphere, rect, cuboid, triangle or
-mesh), each with an optional ``transform`` / ``translate``; textures
-solid-color, checker, image and noise; materials lambertian, metal,
-dielectric, diffuse-light and isotropic; ``important`` lights.  Sphere
-and rect transforms go to an instancing table; triangle transforms are
-baked into the vertices.  Moving spheres, and meshes above
-``ops.intersect.SWEEP_MAX_TRIS`` triangles, raise ``NotImplementedError``.
+Supported: shapes sphere, moving-sphere, xy-rect, yz-rect, zx-rect,
+cuboid, triangle, mesh and constant-medium (over a sphere, rect, cuboid,
+triangle or mesh), each but the moving sphere with an optional
+``transform`` / ``translate``; textures solid-color, checker, image and
+noise; materials lambertian, metal, dielectric, diffuse-light and
+isotropic; ``important`` lights.  Sphere and rect transforms go to an
+instancing table; triangle transforms are baked into the vertices.  A
+Morton-sorted triangle table also gets its cluster tables; the JAX
+package's BVH is not built.
 """
 
 from __future__ import annotations
@@ -50,18 +51,14 @@ from ray_tracing_tpu_torch.models.scene import (
     TriangleTable,
     identity_transform_table,
     make_medium_boundary,
+    pack_triangle_clusters,
     pack_triangle_sweep,
 )
-from ray_tracing_tpu_torch.ops.intersect import SWEEP_MAX_TRIS
 from ray_tracing_tpu_torch.render.renderer import RendererParam
 
 RECT_AXIS_BY_NAME = {"xy": 0, "yz": 1, "zx": 2}
 
 Transform = Tuple[np.ndarray, np.ndarray]  # (3x3, translate)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet, see ROADMAP")
 
 
 def _cuboid_faces(p0, p1):
@@ -96,8 +93,12 @@ def _morton3(x: np.ndarray) -> np.ndarray:
 
 
 def morton_order(tri_min: np.ndarray, tri_max: np.ndarray) -> np.ndarray:
-    """Stable Morton-sort permutation of triangles by AABB centroid."""
-    centroid = (tri_min + tri_max) * 0.5
+    """Stable Morton-sort permutation of triangles by AABB centroid, with
+    the centroids in float64 as the JAX package's native builder
+    (native/src/v4ray_native.cpp:rt_morton_order), which its compiler
+    prefers: a float32 centroid lands in another 1/1024 cell for a few
+    triangles of large meshes."""
+    centroid = 0.5 * (tri_min.astype(np.float64) + tri_max)
     lo = centroid.min(axis=0)
     hi = centroid.max(axis=0)
     norm = (centroid - lo) / np.maximum(hi - lo, 1e-30)
@@ -223,10 +224,28 @@ class SceneBuilder:
         slot = self._transform_slot(transform)
         self._spheres.append(
             {"center": np.asarray(center, np.float32), "radius": float(radius),
-             "material": material, "transform": slot}
+             "material": material, "transform": slot, "vel": np.zeros(3, np.float32)}
         )
         if important:
             self._lights.append((LIGHT_SPHERE, len(self._spheres) - 1, slot))
+
+    def add_sphere_moving(
+        self, center0: Sequence[float], center1: Sequence[float], radius: float, material: int,
+        *, time0: float = 0.0, time1: float = 1.0,
+    ) -> None:
+        """A sphere moving linearly from ``center0`` at shutter time
+        ``time0`` to ``center1`` at ``time1``; each ray sees it at its own
+        shutter time (ops/rng.py:ray_time).  It takes no transform and is
+        never an important light."""
+        c0 = np.asarray(center0, np.float32)
+        c1 = np.asarray(center1, np.float32)
+        if float(time1) == float(time0):
+            raise ValueError("moving sphere needs time1 != time0")
+        vel = (c1 - c0) / np.float32(time1 - time0)
+        self._spheres.append(
+            {"center": c0 - vel * np.float32(time0),  # the centre at time 0
+             "radius": float(radius), "material": material, "transform": 0, "vel": vel}
+        )
 
     def add_medium(
         self, density: float, material: int, *, spheres: Sequence = (), rects: Sequence = (),
@@ -386,15 +405,17 @@ class SceneBuilder:
             return torch.from_numpy(np.ascontiguousarray(x))
 
         nt = len(self._triangles)
-        if nt > SWEEP_MAX_TRIS:
-            raise NotImplementedError(
-                f"meshes above {SWEEP_MAX_TRIS} triangles (the cluster sweep) are not "
-                "ported yet, see ROADMAP"
-            )
         if nt >= self.BVH_THRESHOLD:
             self._morton_sort()
 
         ns = len(self._spheres)
+        has_motion = any(np.any(s["vel"] != 0) for s in self._spheres)
+        has_transforms = any(s["transform"] for s in self._spheres)
+        if has_motion and has_transforms:
+            raise NotImplementedError(
+                "moving spheres cannot share a sphere table with transformed spheres (motion "
+                "is world-space; add the transformed shape as a separate static sphere)"
+            )
         spheres = SphereTable(
             center=t(
                 np.stack([s["center"] for s in self._spheres]) if ns else np.zeros((0, 3), f32)
@@ -402,8 +423,9 @@ class SceneBuilder:
             radius=t(np.asarray([s["radius"] for s in self._spheres], f32)),
             material=t(np.asarray([s["material"] for s in self._spheres], i32)),
             transform=t(np.asarray([s["transform"] for s in self._spheres], i32)),
-            vel=t(np.zeros((ns, 3), f32)),
-            has_transforms=any(s["transform"] for s in self._spheres),
+            vel=t(np.stack([s["vel"] for s in self._spheres]) if ns else np.zeros((0, 3), f32)),
+            has_transforms=has_transforms,
+            has_motion=has_motion,
         )
 
         media = MediumTable(
@@ -437,6 +459,9 @@ class SceneBuilder:
         )
         if nt:
             triangles = pack_triangle_sweep(triangles)
+            if nt >= self.BVH_THRESHOLD:
+                # Morton order makes consecutive triangles spatial clusters
+                triangles = pack_triangle_clusters(triangles)
 
         nr = len(self._rects)
 
@@ -669,7 +694,15 @@ class _JsonVisitor:
         if ty == "sphere":
             self.b.add_sphere(d["center"], d["radius"], material, **kw)
         elif ty == "moving-sphere":
-            raise _not_ported("shape type 'moving-sphere'")
+            # not in the reference schema (its camera's shutter jitter goes
+            # unused): a linearly moving sphere, without transform or
+            # importance sampling
+            if transform is not None:
+                raise NotImplementedError("moving-sphere does not take a transform")
+            if important:
+                raise NotImplementedError("moving-sphere cannot be an important light")
+            self.b.add_sphere_moving(d["center0"], d["center1"], d["radius"], material,
+                                     time0=d.get("time0", 0.0), time1=d.get("time1", 1.0))
         elif ty == "xy-rect":
             self.b.add_rect(0, d["x0"], d["x1"], d["y0"], d["y1"], d["z"], material,
                             positive=d.get("positive", True), **kw)

@@ -7,11 +7,11 @@ intersection is a dense sweep with no dynamic dispatch.  Every table is
 a dataclass of tensors with a ``.to(device)`` method; static layout
 facts (counts, the light list) are plain Python values.
 
-The port renders spheres, axis-aligned rects and triangles, instancing
-transforms and constant media.  Motion (``SphereTable.vel``) is kept at
-zero and the JAX package's BVH and triangle-cluster tables are not
-built (meshes above ``ops.intersect.SWEEP_MAX_TRIS`` triangles are
-refused), so the tables compare field by field with the JAX package's.
+The port renders spheres (moving ones too), axis-aligned rects and
+triangles, instancing transforms and constant media.  Triangle tables
+carry the dense-sweep constants and, when the compiler Morton-sorts
+them, the two-level cluster tables; the JAX package's BVH is not built.
+The tables compare field by field with the JAX package's.
 """
 
 from __future__ import annotations
@@ -68,8 +68,9 @@ class SphereTable(_Table):
     radius: torch.Tensor  # (S,) f32
     material: torch.Tensor  # (S,) i32 index into MaterialTable
     transform: torch.Tensor  # (S,) i32 index into TransformTable (0 = identity)
-    vel: torch.Tensor  # (S, 3) f32, always 0 (no motion) in the port
+    vel: torch.Tensor  # (S, 3) f32; centre at shutter time t is center + t vel
     has_transforms: bool = False  # some row has a slot other than 0
+    has_motion: bool = False  # some row moves (never with has_transforms)
 
     def __len__(self):
         return self.center.shape[0]
@@ -79,7 +80,8 @@ class SphereTable(_Table):
 class TriangleTable(_Table):
     """Triangles with their transforms baked into the vertices, plus the
     dense-sweep constants of :func:`pack_triangle_sweep` (None on an
-    empty table)."""
+    empty table) and the cluster tables of :func:`pack_triangle_clusters`
+    (None unless the table was Morton-sorted)."""
 
     v0: torch.Tensor  # (T, 3)
     e12: torch.Tensor  # (T, 3) v1 - v0
@@ -96,6 +98,16 @@ class TriangleTable(_Table):
     sw_g1: Optional[torch.Tensor] = None  # (T, 3) e13 x (v0 - origin)
     sw_g2: Optional[torch.Tensor] = None  # (T, 3) e12 x (v0 - origin)
     sw_d0: Optional[torch.Tensor] = None  # (T,) (v0 - origin) . n
+    # the sweep constants cut into K clusters of C consecutive triangles
+    # (ops/geometry.py:triangle_cluster_sweep_t); padding rows are zero
+    cl_lo: Optional[torch.Tensor] = None  # (K, 3) cluster AABB min - sw_origin
+    cl_hi: Optional[torch.Tensor] = None  # (K, 3)
+    cl_e12: Optional[torch.Tensor] = None  # (K, C, 3)
+    cl_e13: Optional[torch.Tensor] = None  # (K, C, 3)
+    cl_n: Optional[torch.Tensor] = None  # (K, C, 3); n == 0 on padding (det masks it)
+    cl_g1: Optional[torch.Tensor] = None  # (K, C, 3)
+    cl_g2: Optional[torch.Tensor] = None  # (K, C, 3)
+    cl_d0: Optional[torch.Tensor] = None  # (K, C)
 
     def __len__(self):
         return self.v0.shape[0]
@@ -103,6 +115,10 @@ class TriangleTable(_Table):
     @property
     def has_sweep(self) -> bool:
         return self.sw_n is not None
+
+    @property
+    def has_clusters(self) -> bool:
+        return self.cl_d0 is not None
 
 
 def pack_triangle_sweep(tris: TriangleTable) -> TriangleTable:
@@ -113,6 +129,48 @@ def pack_triangle_sweep(tris: TriangleTable) -> TriangleTable:
         for x in triangle_sweep_tables(tris.v0.numpy(), tris.e12.numpy(), tris.e13.numpy())
     )
     return dataclasses.replace(tris, sw_origin=origin, sw_n=n, sw_g1=g1, sw_g2=g2, sw_d0=d0)
+
+
+CLUSTER_SIZE = 4096  # triangles per cluster of the two-level sweep
+
+
+def pack_triangle_clusters(tris: TriangleTable) -> TriangleTable:
+    """Cut a Morton-sorted, sweep-packed table into ``CLUSTER_SIZE``
+    consecutive triangles per cluster (host, numpy; the counterpart of
+    ray_tracing_tpu/models/scene.py:pack_triangle_clusters).  Padding
+    rows are zero, so n == 0 and their det masks them out.  The cluster
+    AABBs grow flat axes by 1e-3, as the BVH build does, and are stored
+    translated by ``sw_origin``, the frame of the sweep constants."""
+    if not tris.has_sweep:
+        raise ValueError("pack_triangle_clusters needs sweep constants first")
+    n, c = len(tris), CLUSTER_SIZE
+    if n == 0:
+        return tris
+    k = -(-n // c)
+    pad = k * c - n
+
+    def padded(x, fill=0.0):
+        x = np.asarray(x, np.float32)
+        if pad:
+            x = np.concatenate([x, np.full((pad,) + x.shape[1:], fill, np.float32)])
+        return x.reshape((k, c) + x.shape[1:])
+
+    v0 = tris.v0.numpy()
+    v1 = v0 + tris.e12.numpy()
+    v2 = v0 + tris.e13.numpy()
+    origin = tris.sw_origin.numpy()
+    lo = np.minimum(np.minimum(v0, v1), v2) - origin
+    hi = np.maximum(np.maximum(v0, v1), v2) - origin
+    flat = hi - lo == 0.0
+    lo = np.where(flat, lo - 1e-3, lo)
+    hi = np.where(flat, hi + 1e-3, hi)
+    t = torch.from_numpy
+    return dataclasses.replace(
+        tris,
+        cl_lo=t(padded(lo, np.inf).min(axis=1)), cl_hi=t(padded(hi, -np.inf).max(axis=1)),
+        cl_e12=t(padded(tris.e12)), cl_e13=t(padded(tris.e13)), cl_n=t(padded(tris.sw_n)),
+        cl_g1=t(padded(tris.sw_g1)), cl_g2=t(padded(tris.sw_g2)), cl_d0=t(padded(tris.sw_d0)),
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,6 +322,10 @@ class SceneData(_Table):
     n_rects: int = 0
     n_lights: int = 0
     n_medium: int = 0
+    # the shutter window [time0, time1] of a scene with moving spheres
+    # (models/camera.py:stamp_shutter); each ray's time is drawn per ray
+    # id from it (ops/rng.py:ray_time)
+    shutter: Optional[torch.Tensor] = None  # (2,) f32
 
     @property
     def has_lights(self) -> bool:
@@ -271,7 +333,7 @@ class SceneData(_Table):
 
     @property
     def has_motion(self) -> bool:
-        return bool(self.n_spheres) and bool(torch.any(self.spheres.vel != 0))
+        return self.n_spheres > 0 and self.spheres.has_motion
 
     @property
     def device(self) -> torch.device:
@@ -302,26 +364,25 @@ def scene_from_numpy(tree) -> SceneData:
     arrays: the JAX package's ``SceneData`` after
     ``jax.tree.map(np.asarray, scene)``, or a port scene on the CPU.
 
-    The JAX package's BVH and triangle-cluster tables are dropped: the
-    port sweeps meshes densely.  Raises ``NotImplementedError`` for what
-    the port cannot render yet: meshes above ``SWEEP_MAX_TRIS`` triangles
-    (the cluster sweep) and moving spheres.
+    The cluster tables, sphere velocities and the shutter come across;
+    the JAX package's BVH is dropped.  A mesh above ``SWEEP_MAX_TRIS``
+    triangles without cluster tables would need the BVH walk, which is
+    not ported: that raises ``NotImplementedError``.
     """
     from ray_tracing_tpu_torch.ops.intersect import SWEEP_MAX_TRIS
 
-    if int(tree.n_triangles) > SWEEP_MAX_TRIS:
+    if int(tree.n_triangles) > SWEEP_MAX_TRIS and tree.triangles.cl_d0 is None:
         raise NotImplementedError(
-            f"meshes above {SWEEP_MAX_TRIS} triangles (the cluster sweep) are not "
-            "ported yet, see ROADMAP"
+            f"a mesh above {SWEEP_MAX_TRIS} triangles without cluster tables needs the "
+            "BVH walk, which is not ported yet, see ROADMAP"
         )
-    if tree.spheres.vel is not None and np.any(np.asarray(tree.spheres.vel)):
-        raise NotImplementedError("moving spheres are not ported yet, see ROADMAP")
     tt = tree.textures
     lt = tree.lights
     md = tree.media
+    vel = tree.spheres.vel
     return SceneData(
-        spheres=_tensors(SphereTable, tree.spheres,
-                         vel=torch.zeros((int(tree.n_spheres), 3), dtype=torch.float32)),
+        spheres=_tensors(SphereTable, tree.spheres, vel=torch.from_numpy(
+            np.zeros((int(tree.n_spheres), 3), np.float32) if vel is None else np.array(vel))),
         triangles=_tensors(TriangleTable, tree.triangles),
         rects=_tensors(RectTable, tree.rects),
         transforms=_tensors(TransformTable, tree.transforms),
@@ -347,6 +408,7 @@ def scene_from_numpy(tree) -> SceneData:
         n_rects=int(tree.n_rects),
         n_lights=int(tree.n_lights),
         n_medium=int(tree.n_medium),
+        shutter=None if tree.shutter is None else torch.from_numpy(np.array(tree.shutter)),
     )
 
 

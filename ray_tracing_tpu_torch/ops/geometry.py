@@ -215,6 +215,45 @@ def triangle_sweep_t(ro_s, rd, m, e12, e13, n, g1, g2, d0, t_min, t_max):
     return t, mask
 
 
+def triangle_cluster_sweep_t(ro, rd, origin, cl_lo, cl_hi, cl_e12, cl_e13, cl_n, cl_g1, cl_g2,
+                             cl_d0, t_min, t_max):
+    """Nearest triangle per ray by the two-level cluster sweep: (t (N,),
+    idx (N,) i32, found (N,) bool).
+
+    The clusters (K of C consecutive Morton-sorted triangles, AABBs
+    ``cl_lo``/``cl_hi`` translated by ``origin``) go in order.  A
+    cluster is swept only when some ray's slab window
+    [max(near, t_min), min(far, t_max, best_t)] is non-empty, with
+    IEEE 1/rd (a 0 * inf NaN fails the test); one host sync per
+    cluster.  Within a cluster the lowest local index wins a tie, and a
+    later cluster must be strictly nearer, so (t, idx) equal one argmin
+    over the whole table wherever the cull is conservative."""
+    n = ro.shape[0]
+    c = cl_d0.shape[1]
+    ro_s = ro - origin
+    m = cross(ro_s, rd)
+    inv_rd = 1.0 / rd
+    best_t = torch.full((n,), INF, dtype=torch.float32, device=ro.device)
+    best_idx = torch.zeros((n,), dtype=torch.int32, device=ro.device)
+    for k in range(cl_d0.shape[0]):
+        t0 = (cl_lo[k] - ro_s) * inv_rd
+        t1 = (cl_hi[k] - ro_s) * inv_rd
+        near = torch.clamp_min(torch.minimum(t0, t1).amax(dim=1), t_min)
+        far = torch.clamp_max(torch.maximum(t0, t1).amin(dim=1), t_max)
+        window = torch.clamp_max(best_t, t_max)
+        if not bool((near <= torch.minimum(far, window)).any()):
+            continue
+        t, mask = triangle_sweep_t(ro_s, rd, m, cl_e12[k], cl_e13[k], cl_n[k], cl_g1[k],
+                                   cl_g2[k], cl_d0[k], t_min, t_max)
+        t = torch.where(mask, t, INF)
+        li = torch.argmin(t, dim=1)
+        tb = torch.gather(t, 1, li[:, None])[:, 0]
+        better = tb < best_t  # strict: an earlier cluster keeps a tie
+        best_t = torch.where(better, tb, best_t)
+        best_idx = torch.where(better, (li + k * c).to(torch.int32), best_idx)
+    return best_t, best_idx, best_t < INF
+
+
 def matvec3(m, v):
     """(..., 3, 3) times (..., 3) as explicit float32 products and adds,
     ((m0 x + m1 y) + m2 z) per row.  Never a matrix product: on the card

@@ -7,22 +7,25 @@ Two phases:
 
 * **Phase A** finds each ray's nearest primitive: (t, kind, index).  It
   is selection only.  Spheres and rects go first, through kernel K1 or,
-  when a table carries transforms, K3 (ops/cuda_intersect.py); then
-  triangles, through the dense sweep K5 (ops/cuda_triangles.py); then
-  constant media, in plain PyTorch.  This is the TPU's order; on the
-  CPU the plain versions run in the same order.  A later kind wins only
-  with a strictly smaller t.
+  when a table carries transforms, K3, or with moving spheres K4
+  (ops/cuda_intersect.py); then triangles, through the dense sweep K5
+  or, for a mesh above ``SWEEP_MAX_TRIS`` triangles, the cluster sweep
+  K6 (ops/cuda_triangles.py); then constant media, in plain PyTorch.
+  This is the TPU's order; on the CPU the plain versions run in the
+  same order.  A later kind wins only with a strictly smaller t.
 * **Phase B** gathers the one winning primitive per ray and re-runs
   the same hit math to build the full record (p, normal, uv,
   front_face).
 
 Medium primitives draw their free-flight uniform from ``med_u`` (one
 column per medium), so phase B reproduces phase A's stochastic t.
+Moving spheres are tested at each ray's shutter time ``t_ray``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -42,8 +45,7 @@ KIND_RECT = 2
 KIND_MEDIUM = 3  # index = medium id
 
 # Meshes up to this many triangles take the dense sweep (K5); larger ones
-# need the two-level cluster sweep (K6/K7) of the JAX package, which the
-# port does not have yet.
+# take the two-level cluster sweep (K6).
 SWEEP_MAX_TRIS = 32768
 
 
@@ -75,9 +77,16 @@ def _object_grid(table, cols: int, ro, rd, t_min, t_max):
     return ro_o, rd_o, nrm, t_min * nrm, t_max * nrm
 
 
-def _sphere_phase_a(sph, ro, rd, t_min, t_max):
+def _sphere_phase_a(sph, ro, rd, t_min, t_max, t_ray=None):
     """(N, S) candidate grid of world (t, mask) against a packed sphere
-    table: (S, 4) [cx cy cz r], or (S, 16) with [inv(9) inv_t(3)]."""
+    table: (S, 4) [cx cy cz r], (S, 16) with [inv(9) inv_t(3)], or a
+    moving table (S, 7) with [vx vy vz], tested at each ray's centre
+    c + t_ray v (at time 0 when ``t_ray`` is None)."""
+    if sph.shape[1] == 7:
+        if t_ray is None:
+            t_ray = torch.zeros((ro.shape[0],), dtype=torch.float32, device=ro.device)
+        center = sph[None, :, 0:3] + t_ray[:, None, None] * sph[None, :, 4:7]
+        return geo.sphere_t(ro[:, None, :], rd[:, None, :], center, sph[:, 3], t_min, t_max)
     ro_o, rd_o, nrm, lo, hi = _object_grid(sph, 4, ro, rd, t_min, t_max)
     t, mask = geo.sphere_t(ro_o, rd_o, sph[:, 0:3], sph[:, 3], lo, hi)
     return (t if nrm is None else t / nrm), mask
@@ -105,10 +114,12 @@ def _gathered_object_ray(scene: SceneData, slots, ro, rd, t_min, t_max):
     return ro_o, rd_o, t_min * nrm, t_max * nrm, tf.fwd[slots], tf.fwd_t[slots]
 
 
-def _sphere_phase_b(scene: SceneData, ro, rd, t_min, t_max, idx):
+def _sphere_phase_b(scene: SceneData, ro, rd, t_min, t_max, idx, t_ray=None):
     """Full record for one gathered sphere per ray; idx: (N,)."""
     sp = scene.spheres
     center = sp.center[idx]
+    if sp.has_motion and t_ray is not None:
+        center = center + t_ray[:, None] * sp.vel[idx]
     radius = sp.radius[idx]
     if sp.has_transforms:
         ro_o, rd_o, lo, hi, fwd, fwd_t = _gathered_object_ray(
@@ -163,19 +174,22 @@ def _triangle_phase_b(scene: SceneData, ro, rd, t_min, t_max, idx):
 
 
 def mesh_strategy(scene: SceneData) -> str:
-    """The triangle strategy: "none" without triangles, "sweep" (the dense
-    sweep, K5) for a table with sweep constants of at most
-    ``SWEEP_MAX_TRIS`` triangles.  Anything else would need the cluster
-    sweep or the BVH walk, which are not ported: that raises, and the
-    sweep never runs in their place."""
+    """The triangle strategy, as the JAX package chooses it: "none"
+    without triangles, "sweep" (the dense sweep, K5) for a table with
+    sweep constants of at most ``SWEEP_MAX_TRIS`` triangles, "cluster"
+    (the cluster sweep, K6) for a larger table with cluster tables.
+    Anything else would need the BVH walk, which is not ported: that
+    raises, and no sweep runs in its place."""
     if scene.n_triangles == 0:
         return "none"
     if scene.triangles.has_sweep and scene.n_triangles <= SWEEP_MAX_TRIS:
         return "sweep"
+    if scene.triangles.has_clusters:
+        return "cluster"
     raise NotImplementedError(
         f"a mesh of {scene.n_triangles} triangles "
-        f"({'with' if scene.triangles.has_sweep else 'without'} sweep constants) needs the "
-        "cluster sweep or the BVH walk, which are not ported yet, see ROADMAP"
+        f"({'with' if scene.triangles.has_sweep else 'without'} sweep constants, without "
+        "cluster tables) needs the BVH walk, which is not ported yet, see ROADMAP"
     )
 
 
@@ -246,16 +260,22 @@ def _medium_phase_a(scene: SceneData, ro, rd, t_min, t_max, med_u):
     return torch.stack(ts, dim=1), torch.stack(masks, dim=1)
 
 
-def intersect_scene(scene: SceneData, ro, rd, t_min: float, t_max: float, med_u=None) -> Hit:
+def intersect_scene(scene: SceneData, ro, rd, t_min: float, t_max: float, med_u=None,
+                    t_ray=None) -> Hit:
     """Nearest hit of each ray (ro, rd: (N, 3)) against the whole scene;
     ``med_u`` (N, n_medium) uniforms for the constant media's free
-    flights (None when the scene has none)."""
+    flights (None when the scene has none); ``t_ray`` (N,) shutter times
+    for moving spheres (None for a scene without them)."""
     from ray_tracing_tpu_torch.ops.cuda_intersect import pack_primitive_tables, phase_a
 
     n = ro.shape[0]
     ro_d, rd_d = ro.detach().contiguous(), rd.detach().contiguous()
+    if not scene.has_motion:
+        t_ray = None
+    elif t_ray is not None:
+        t_ray = t_ray.detach().contiguous()
     sph, rect = pack_primitive_tables(scene)
-    best_t, best_kind, best_idx = phase_a(sph, rect, ro_d, rd_d, t_min, t_max)
+    best_t, best_kind, best_idx = phase_a(sph, rect, ro_d, rd_d, t_min, t_max, t_ray)
 
     def consider_per_ray(t, idx, found, kind):
         nonlocal best_t, best_kind, best_idx
@@ -264,11 +284,15 @@ def intersect_scene(scene: SceneData, ro, rd, t_min: float, t_max: float, med_u=
         best_kind = torch.where(better, kind, best_kind)
         best_idx = torch.where(better, idx, best_idx)
 
-    if mesh_strategy(scene) == "sweep":
-        tr = scene.triangles
+    strategy = mesh_strategy(scene)
+    tr = scene.triangles
+    if strategy == "sweep":
         consider_per_ray(*cuda_triangles.triangle_sweep(
             cuda_triangles.pack_triangle_table(tr), tr.sw_origin, ro_d, rd_d, t_min, t_max,
         ), KIND_TRIANGLE)
+    elif strategy == "cluster":
+        consider_per_ray(*cuda_triangles.cluster_sweep(tr, ro_d, rd_d, t_min, t_max),
+                         KIND_TRIANGLE)
     if scene.n_medium:
         t, mask = _medium_phase_a(scene, ro, rd, t_min, t_max, med_u)
         t = torch.where(mask, t, INF)
@@ -299,7 +323,8 @@ def intersect_scene(scene: SceneData, ro, rd, t_min: float, t_max: float, med_u=
     # phase B on each kind's table; lanes of another kind gather row
     # ``best_idx`` clamped into this table and are discarded by merge
     for kind, count, phase_b, table in (
-        (KIND_SPHERE, scene.n_spheres, _sphere_phase_b, scene.spheres),
+        (KIND_SPHERE, scene.n_spheres, functools.partial(_sphere_phase_b, t_ray=t_ray),
+         scene.spheres),
         (KIND_TRIANGLE, scene.n_triangles, _triangle_phase_b, scene.triangles),
         (KIND_RECT, scene.n_rects, _rect_phase_b, scene.rects),
     ):

@@ -62,6 +62,18 @@ def ray_uniforms(key, ids: torch.Tensor, stream: int, n_cols: int) -> torch.Tens
     return (h >> 8).to(torch.float32) * (2.0 ** -24)
 
 
+# the stream of the per-ray shutter time, far from every bounce index
+TIME_STREAM = 0x7F000001
+
+
+def ray_time(key, ids: torch.Tensor, shutter: torch.Tensor) -> torch.Tensor:
+    """(n,) shutter times in [shutter[0], shutter[1]], a pure function of
+    (key, ray id): every bounce of a path, a compacted trace and every
+    replay see the same instant without carrying it."""
+    u = ray_uniforms(key, ids, TIME_STREAM, 1)[:, 0]
+    return shutter[0] + u * (shutter[1] - shutter[0])
+
+
 # ---------------------------------------------------------------------- #
 # key derivation: threefry-2x32, as jax.random.key / jax.random.split
 # (partitionable mode) compute it

@@ -14,15 +14,36 @@ bit-identical to the dense loop.
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from ray_tracing_tpu_torch.models.scene import SceneData
 from ray_tracing_tpu_torch.ops.geometry import EPSILON, INF
 from ray_tracing_tpu_torch.ops.intersect import intersect_scene
 from ray_tracing_tpu_torch.ops.materials import N_SCATTER_U, shade
-from ray_tracing_tpu_torch.ops.rng import ray_uniforms
+from ray_tracing_tpu_torch.ops.rng import ray_time, ray_uniforms
 
 STAGE_BOUNCES = 4  # bounces per lead compaction stage
+
+
+def _shutter_times(scene: SceneData, key, ids):
+    """Per-ray shutter times of a scene with moving spheres, keyed by ray
+    id (ops/rng.py:ray_time); None when nothing moves.  A motion scene
+    without a ``shutter`` is traced at time 0, with a warning: the caller
+    most likely forgot models/camera.py:stamp_shutter."""
+    if not scene.has_motion:
+        return None
+    shutter = scene.shutter
+    if shutter is None:
+        warnings.warn(
+            "scene has moving spheres but scene.shutter is None: rays are traced at the "
+            "frozen t=0 position.  Stamp the camera window first "
+            "(models/camera.stamp_shutter) or set scene.shutter explicitly.",
+            stacklevel=3,
+        )
+        shutter = torch.zeros((2,), dtype=torch.float32, device=ids.device)
+    return ray_time(key, ids, shutter)
 
 
 def _bounce(scene: SceneData, key, bounce: int, carry, count_segments: bool = True,
@@ -40,7 +61,7 @@ def _bounce(scene: SceneData, key, bounce: int, carry, count_segments: bool = Tr
     u = ray_uniforms(key, ids, bounce, N_SCATTER_U + scene.n_medium)
     med_u = u[:, N_SCATTER_U:] if scene.n_medium else None
     u = u[:, :N_SCATTER_U]
-    hit = intersect_scene(scene, ro, rd, EPSILON, INF, med_u)
+    hit = intersect_scene(scene, ro, rd, EPSILON, INF, med_u, _shutter_times(scene, key, ids))
     found = alive & hit.mask
     miss = alive & ~hit.mask
 

@@ -1,6 +1,6 @@
-"""Tests of the port that need an NVIDIA GPU: K1, K2, K3 and K5 against
-their plain versions on the card, and the render and gradient paths on
-the card.  They skip without a GPU.  The file imports no JAX, so on a machine with a GPU
+"""Tests of the port that need an NVIDIA GPU: K1 to K6 against their
+plain versions on the card, and the render and gradient paths on the
+card.  They skip without a GPU.  The file imports no JAX, so on a machine with a GPU
 and without JAX it runs on its own:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import ray_tracing_tpu_torch as prt
+from ray_tracing_tpu_torch import scenes
 from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
 from ray_tracing_tpu_torch.ops import _build
 from ray_tracing_tpu_torch.ops import cuda_intersect as ci
@@ -258,3 +259,149 @@ def test_scene_json_render_on_card(cuda, scene_json):
     on_card = prt.Renderer(one, scene_json.camera, scene_json.scene, device=cuda).render(4).cpu()
     on_cpu = prt.Renderer(one, scene_json.camera, scene_json.scene, device="cpu").render(4)
     assert torch.equal(on_card, on_cpu)
+
+
+@pytest.fixture(scope="module")
+def c6():
+    return scenes.bunny_grid()
+
+
+@pytest.fixture(scope="module")
+def motion():
+    return scenes.motion_blur()
+
+
+def _grid_rays(n, seed, device):
+    """Rays from around C6's camera aimed at random points of the grid's
+    box."""
+    r = np.random.RandomState(seed)
+    ro = np.array([-0.7, 0.8, 1.2]) + r.uniform(-0.2, 0.2, (n, 3))
+    rd = r.uniform([-0.5, 0.03, -0.5], [0.5, 0.19, 0.5], (n, 3)) - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    return (torch.from_numpy(ro.astype(np.float32)).to(device),
+            torch.from_numpy(rd.astype(np.float32)).to(device))
+
+
+def _copies_rays(n, seed, device):
+    """tests/test_pallas_triangles.py:_rays, spread over the 27-copy grid:
+    origins above it, directions down at it."""
+    r = np.random.RandomState(seed)
+    ro = r.uniform([-0.9, 0.6, -0.9], [0.9, 0.8, 0.9], (n, 3))
+    rd = r.uniform([-0.9, 0.0, -0.9], [0.9, 0.15, 0.9], (n, 3)) - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    return (torch.from_numpy(ro.astype(np.float32)).to(device),
+            torch.from_numpy(rd.astype(np.float32)).to(device))
+
+
+def _check_cluster_kernel(tr, ro, rd):
+    tri, aabb = ct.pack_triangle_table(tr), ct.pack_cluster_aabbs(tr)
+    before = (ct.LAUNCHES, ct.CL_LAUNCHES)
+    stats = torch.zeros(3, dtype=torch.int32, device=ro.device)
+    got = ct.cluster_sweep_cuda(tri, aabb, tr.sw_origin, ro, rd, 1e-3, np.inf, stats)
+    torch.cuda.synchronize()
+    assert (ct.LAUNCHES, ct.CL_LAUNCHES) == (before[0], before[1] + 1)
+    want = ct.cluster_sweep_plain(tr, ro, rd, 1e-3, np.inf)
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(got[1][got[2]], want[1][want[2]])
+    torch.testing.assert_close(got[0][got[2]], want[0][want[2]], rtol=1e-6, atol=0.0)
+    blocks = -(-ro.shape[0] // ct.CL_THREADS)
+    assert 0 < int(stats[0]) < blocks * aabb.shape[0], "the cull skips some clusters"
+    assert int(stats[2]) <= ct.CL_THREADS * int(stats[0]) and int(stats[1]) <= 4 * int(stats[0])
+    return got
+
+
+def test_cluster_kernel_matches_plain_on_card(cuda, c6):
+    """K6 against cluster_sweep_plain on C6 (79,488 triangles, 621
+    clusters of 128): found and idx equal, t within rtol 1e-6, on camera
+    rays and rays aimed at the grid (with a ragged tail)."""
+    scene, cam, _ = c6
+    tr = scene.triangles.to(cuda)
+    ro, rd, _, _ = camera_rays(Camera.build(cam, 1.0).to(cuda), rng.key(3), 128, 128)
+    for rays in ((ro.contiguous(), rd.contiguous()), _grid_rays(5003, 1, cuda)):
+        found = _check_cluster_kernel(tr, *rays)[2]
+        assert found.float().mean() > 0.05
+
+
+def test_cluster_kernel_past_1024_clusters(cuda):
+    """K7's case, the same kernel: 27 bunnies, 134,136 triangles, 1,048
+    clusters of 128."""
+    tr = scenes.bunny_copies(27).triangles.to(cuda)
+    assert ct.pack_cluster_aabbs(tr).shape[0] > 1024
+    found = _check_cluster_kernel(tr, *_copies_rays(4099, 2, cuda))[2]
+    assert found.float().mean() > 0.05
+
+
+def test_cluster_kernel_refuses_bad_inputs(cuda, c6):
+    tr = c6[0].triangles.to(cuda)
+    tri, aabb = ct.pack_triangle_table(tr), ct.pack_cluster_aabbs(tr)
+    ro, rd = _grid_rays(100, 2, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ct.cluster_sweep_cuda(tri, aabb, tr.sw_origin, ro.t().contiguous().t(), rd, 1e-3, np.inf)
+    with pytest.raises(ValueError, match="shape"):
+        ct.cluster_sweep_cuda(tri, aabb[:-1].contiguous(), tr.sw_origin, ro, rd, 1e-3, np.inf)
+    with pytest.raises(TypeError, match="float32"):
+        ct.cluster_sweep_cuda(tri, aabb, tr.sw_origin, ro.double(), rd, 1e-3, np.inf)
+    before = ct.CL_LAUNCHES
+    empty = torch.zeros((0, 3), device=cuda)
+    out = ct.cluster_sweep_cuda(tri, aabb, tr.sw_origin, empty, empty, 1e-3, np.inf)
+    assert all(x.numel() == 0 for x in out) and ct.CL_LAUNCHES == before
+
+
+def test_motion_kernel_matches_plain_on_card(cuda, motion):
+    """K4 (a moving sphere table, (S, 7)) against phase_a_plain with the
+    rays' shutter times: kind and idx equal, t within rtol 1e-5, winners
+    on the moving spheres; without t_ray both test time 0."""
+    scene, cam, _ = motion
+    sph, rect = ci.pack_primitive_tables(scene.to(cuda))
+    assert sph.shape[1] == ci.SPHERE_COLS + ci.MOTION_COLS
+    ro, rd, _, _ = camera_rays(Camera.build(cam, 1.0).to(cuda), rng.key(3), 128, 128)
+    r = np.random.RandomState(0)
+    iro = r.uniform([-3, 0.1, -3], [3, 2.5, 3], (5000, 3))
+    ird = r.uniform([-1.5, 0.2, -0.5], [2.5, 0.7, 0.5], (5000, 3)) - iro
+    ird /= np.linalg.norm(ird, axis=1, keepdims=True)
+    sets = [(ro.contiguous(), rd.contiguous()),
+            tuple(torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (iro, ird))]
+    for ro, rd in sets:
+        t_ray = torch.from_numpy(r.uniform(0, 1, ro.shape[0]).astype(np.float32)).to(cuda)
+        for times in (t_ray, None):
+            before = (ci.LAUNCHES, ci.TF_LAUNCHES, ci.MOTION_LAUNCHES)
+            got = ci.phase_a_cuda(sph, rect, ro, rd, 1e-3, np.inf, times)
+            torch.cuda.synchronize()
+            assert (ci.LAUNCHES, ci.TF_LAUNCHES, ci.MOTION_LAUNCHES) == (
+                before[0], before[1], before[2] + 1)
+            want = ci.phase_a_plain(sph, rect, ro, rd, 1e-3, np.inf, times)
+            assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+            torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+            assert int(((got[1] == 0) & (got[2] > 0)).sum()) > 0
+
+
+def _scene_render_on_card(cuda, scene, cam, counts, launched, idle):
+    """64x64 depth 8 on the card: the path's kernel launched and the other
+    not, finite, compacted equal to dense, deterministic; the depth-1
+    image equals the CPU's."""
+    param = prt.RendererParam(64, 64, max_depth=8)
+    compact = prt.Renderer(param, cam, scene, device=cuda)
+    dense = prt.Renderer(param, cam, scene, device=cuda, compaction=False)
+    before = counts()
+    img = compact.render(4)
+    after = counts()
+    assert after[launched] > before[launched] and after[idle] == before[idle]
+    assert img.device.type == "cuda" and torch.isfinite(img).all() and (img >= 0).all()
+    assert torch.equal(img, dense.render(4))
+    assert torch.equal(img, compact.render(4))
+    one = prt.RendererParam(32, 32, max_depth=1)
+    on_card = prt.Renderer(one, cam, scene, device=cuda).render(4).cpu()
+    on_cpu = prt.Renderer(one, cam, scene, device="cpu").render(4)
+    assert torch.equal(on_card, on_cpu)
+
+
+def test_c6_render_on_card(cuda, c6):
+    """C6: K6 launched, K5 not."""
+    scene, cam, _ = c6
+    _scene_render_on_card(cuda, scene, cam, lambda: (ct.CL_LAUNCHES, ct.LAUNCHES), 0, 1)
+
+
+def test_motion_render_on_card(cuda, motion):
+    """The motion scene: K4 launched, K1 not."""
+    scene, cam, _ = motion
+    _scene_render_on_card(cuda, scene, cam, lambda: (ci.MOTION_LAUNCHES, ci.LAUNCHES), 0, 1)

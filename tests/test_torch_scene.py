@@ -68,13 +68,16 @@ def test_scene_from_numpy_round_trips(bundles):
 
 
 def test_scene_from_numpy_refuses_unported_jax_scene():
-    """Moving spheres (K4) and meshes that need the cluster sweep (K6/K7)
-    are not ported; data/scene.json bridges (tests/test_torch_mesh.py)."""
+    """A mesh above SWEEP_MAX_TRIS without cluster tables needs the BVH
+    walk, which is not ported.  Moving spheres (K4) and cluster tables
+    (K6) bridge with their velocities and tables."""
     b = jrt.SceneBuilder()
     b.add_sphere_moving((0, 0, 0), (1, 0, 0), 1.0, b.add_lambertian(b.add_texture_solid((1, 1, 1))))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        prt.scene_from_numpy(jax.tree.map(np.asarray, b.build()))
+    moving = b.build()
+    _assert_tables_equal(prt.scene_from_numpy(jax.tree.map(np.asarray, moving)), moving)
     scene = jrt.load_scene_json("data/scene.json").scene.replace(n_triangles=40000)
+    assert prt.scene_from_numpy(jax.tree.map(np.asarray, scene)).triangles.has_clusters
+    scene = scene.replace(triangles=scene.triangles.replace(cl_d0=None))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         prt.scene_from_numpy(jax.tree.map(np.asarray, scene))
 
@@ -95,27 +98,34 @@ _IMPORTANT_TRIANGLE = {"shape": {"type": "triangle", "vertices": [[0, 0, 0], [1,
                        "material": _WHITE, "important": True}
 
 
+_NOT_PORTED = "not ported yet, see ROADMAP"
+
+
 @pytest.mark.parametrize(
-    "objects",
+    "objects, match",
     [
-        [_IMPORTANT_TRIANGLE],
-        [{"shape": _BUNNY, "material": _WHITE}] * 7,
-        [{"shape": {"type": "sphere", "center": [0, 0, 0], "radius": 1, "translate": [1, 0, 0]},
-          "material": _WHITE, "important": True}],
-        [{"shape": {"type": "moving-sphere", "center0": [0, 0, 0], "center1": [1, 0, 0],
-                    "radius": 1}, "material": _WHITE}],
+        ([_IMPORTANT_TRIANGLE], _NOT_PORTED),
+        ([{"shape": _BUNNY, "material": _WHITE, "important": True}], _NOT_PORTED),
+        ([{"shape": {"type": "sphere", "center": [0, 0, 0], "radius": 1, "translate": [1, 0, 0]},
+           "material": _WHITE, "important": True}], _NOT_PORTED),
+        ([{"shape": {"type": "moving-sphere", "center0": [0, 0, 0], "center1": [1, 0, 0],
+                     "radius": 1, "translate": [1, 0, 0]}, "material": _WHITE}],
+         "does not take a transform"),
     ],
-    # a triangle light, a cluster-size mesh, a transformed light
+    # a triangle light, a mesh light, a transformed light, a transformed
+    # moving sphere
     ids=["triangle", "mesh", "transform", "moving-sphere"],
 )
-def test_unported_surface_raises(objects):
-    """What the port cannot draw yet raises when the scene is built or,
-    for lights, at the first render, instead of drawing something else:
-    triangle and transformed lights, meshes above SWEEP_MAX_TRIS (7
-    bunnies, 34,776 triangles) and moving spheres."""
+def test_unported_surface_raises(objects, match):
+    """What the port cannot draw raises when the scene is built or, for
+    lights, at the first render, instead of drawing something else:
+    triangle lights (one triangle, a mesh), transformed lights, and a
+    moving sphere with a transform (refused by the JAX package too).
+    Meshes above SWEEP_MAX_TRIS and moving spheres render
+    (tests/test_torch_clusters.py, tests/test_torch_motion.py)."""
     param = {"renderer": {"width": 4, "height": 4, "max_depth": 1}, "camera": _CAMERA,
              "objects": objects}
-    with pytest.raises(NotImplementedError, match="not ported yet, see ROADMAP"):
+    with pytest.raises(NotImplementedError, match=match):
         bundle = build_scene(param, base_dir="data")
         prt.Renderer(bundle.renderer, bundle.camera, bundle.scene, device="cpu").render(0)
 

@@ -71,10 +71,14 @@ def hit_rays(bundles):
 @pytest.mark.parametrize("which", ["camera", "second-bounce"])
 def test_hit_matches_jax(bundles, hit_rays, which):
     """kind, index, material, mask and front face equal on every ray;
-    p to rtol 1e-5; normal and uv to rtol 1e-5 / atol 1e-6 (unit-scale
-    values, some components near 0); t to rtol 1e-5 except on sphere
-    hits, where disc = half_b^2 - c cancels for rays leaving the
-    surface (ROADMAP Queue 3, PR 1)."""
+    normal and uv to rtol 1e-5 / atol 1e-6 (unit-scale values, some
+    components near 0); t to rtol 1e-5 except on sphere hits, where
+    disc = half_b^2 - c cancels for rays leaving the surface (ROADMAP
+    Queue 3, grazing sphere hits).  p = ro + rd t carries the rounding
+    of that sum and t's own error along the ray, so each component is
+    held to 1e-5 (|ro| + t |rd|): a component that should be 0 on a
+    rect's plane comes out as 0 or as a few ulps of the terms (ROADMAP
+    Queue 3, parity bounds)."""
     ours, ref = bundles
     ro, rd, med_u = hit_rays[which]
     mine = intersect_scene(ours.scene, torch.from_numpy(ro), torch.from_numpy(rd), 1e-3, np.inf,
@@ -86,7 +90,9 @@ def test_hit_matches_jax(bundles, hit_rays, which):
                                       err_msg=name)
     assert len(set(hit.kind.tolist()) - {-1}) == 4, "spheres, triangles, rects and the medium"
     m = hit.mask
-    np.testing.assert_allclose(mine.p.numpy()[m], hit.p[m], rtol=1e-5)
+    dp = np.abs(mine.p.numpy()[m].astype(np.float64) - hit.p[m])
+    scale = np.linalg.norm(ro[m], axis=1) + hit.t[m] * np.linalg.norm(rd[m], axis=1)
+    assert np.all(dp <= 1e-5 * scale[:, None]), (dp / scale[:, None]).max()
     np.testing.assert_allclose(mine.normal.numpy()[m], hit.normal[m], rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(mine.uv.numpy()[m], hit.uv[m], rtol=1e-5, atol=1e-6)
     surf = m & (hit.kind != KIND_SPHERE)

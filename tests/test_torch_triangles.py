@@ -170,14 +170,23 @@ def test_sweep_on_cpu_takes_the_plain_version(scenes):
 
 
 def test_mesh_strategy_is_the_sweep_or_refuses(scenes):
-    ours, _ = scenes
+    """The dense sweep up to SWEEP_MAX_TRIS, the cluster sweep above it or
+    without sweep constants, as the JAX package chooses; a table without
+    cluster tables that the sweep cannot take needs the BVH walk, which
+    is refused."""
+    ours, ref = scenes
     assert pintersect.mesh_strategy(ours) == "sweep"
     too_many = dataclasses.replace(ours, n_triangles=pintersect.SWEEP_MAX_TRIS + 1)
     no_sweep = dataclasses.replace(
         ours, triangles=dataclasses.replace(ours.triangles, sw_n=None))
     for scene in (too_many, no_sweep):
+        assert pintersect.mesh_strategy(scene) == "cluster"
+    assert jintersect.mesh_strategy(ref.replace(n_triangles=pintersect.SWEEP_MAX_TRIS + 1)) == "cluster"
+    unclustered = [dataclasses.replace(s, triangles=dataclasses.replace(s.triangles, cl_d0=None))
+                   for s in (too_many, no_sweep)]
+    for scene in unclustered:
         with pytest.raises(NotImplementedError, match="not ported yet"):
             pintersect.mesh_strategy(scene)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        pintersect.intersect_scene(no_sweep, torch.zeros((4, 3)), torch.ones((4, 3)), 1e-3,
+        pintersect.intersect_scene(unclustered[1], torch.zeros((4, 3)), torch.ones((4, 3)), 1e-3,
                                    np.inf)
