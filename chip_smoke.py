@@ -41,27 +41,33 @@ Phases (any failure raises and exits non-zero):
      version on the card, for the 800x800 camera rays of data/scene.json
      and 65,536 random rays in its box (numpy seed 0): hit/miss, kind
      and index equal, t to rtol 1e-5, winners on the rotated cuboid;
- 10. K5 (the triangle sweep, csrc/triangles.cu) against its chunked plain
-     version on the same camera rays and 65,536 rays aimed at the bunny:
-     hit/miss and index equal, t equal or to rtol 1e-6, > 1 % of the
-     rays on the mesh;
+ 10. K5 (the triangle sweep, csrc/triangles.cu) against its dense plain
+     version (no cull) on the same camera rays, 65,536 rays aimed at the
+     bunny and 65,536 secondary rays from the camera rays' mesh hits
+     (secondary_rays): hit/miss and index equal, t bit-equal on hits,
+     > 1 % of the rays on the mesh; needed pairs and per-warp list
+     lengths and sweeps printed;
  11. the second main path: load data/scene.json, Renderer(800x800,
      max_depth=50, device="cuda"), render(k) for k = 0..2 -- finite,
      non-negative images with a mean in 0.55-0.65 (JAX CPU renders give
      0.58-0.61, PERF.md), render(0) deterministic, K3 and K5 launched;
  12. at 128x128 depth 50, compacted equals dense, and a 32x32 depth-1
      image on the card equals the port's CPU render;
- 13. timings: ms per 800x800 depth-50 pass, segments per second, K3 and
-     K5 against their plain versions on a 65,536-ray tile (CUDA events
-     and torch.profiler device time), the device's busy share over a
-     profiled 128x128 depth-50 pass;
+ 13. timings: ms per 800x800 depth-50 pass, segments per second, K3
+     against its plain version on a 65,536-ray tile, K5 on the busiest
+     camera-ray tile, the bunny-aimed tile and the secondary tile (CUDA
+     events and torch.profiler device time, beside the needed pairs, the
+     bound and the share), K5's plain version on the secondary tile, the
+     device's busy share over a profiled 128x128 depth-50 pass and K5's
+     part of it;
  14. K4 and K6 are among the builds of phase 1 (ptxas counts) and load;
  15. K6 against its plain version (cluster_sweep_plain) on the 512x512
      camera rays of C6 (scenes.bunny_grid: 79,488 triangles, 621
-     clusters of 128), 65,536 rays aimed at the grid and 65,536 rays on
-     27 bunnies (1,048 clusters, K7's case): hit/miss and index equal, t
-     to rtol 1e-6; the hit share and the share of (block, cluster) and
-     (ray, cluster) pairs the cull let through;
+     clusters of 128), 65,536 rays aimed at the grid, 65,536 secondary
+     rays from the camera rays' mesh hits (also against the dense plain
+     version) and 65,536 rays on 27 bunnies (1,048 clusters, K7's case):
+     hit/miss and index equal, t bit-equal on hits; the needed pairs and
+     the per-warp list lengths and sweeps;
  16. the C6 path: Renderer(512x512, default depth 20), render(k) for
      k = 0..2 -- finite, non-negative, mean in C6_MEAN, render(0)
      deterministic, K6 launched and K5 not; 32x32 depth-1 card == CPU;
@@ -71,12 +77,17 @@ Phases (any failure raises and exits non-zero):
  18. the motion path: Renderer(384x384, depth 8), render(k) for
      k = 0..2 -- as phase 16 with MB_MEAN, K4 launched and K1 not;
      128x128 compacted == dense; 32x32 depth-1 card == CPU;
- 19. timings: ms per pass and segments/s of both scenes, K6 and K4
-     against their plain versions (CUDA events and torch.profiler), the
-     device's busy share over profiled 128x128 passes of both.
+ 19. timings: ms per pass and segments/s of both scenes, K6 on the
+     busiest C6 camera-ray tile and the C6 secondary tile as in 13, its
+     plain version on the secondary tile, K4 against its plain version
+     (CUDA events and torch.profiler), the device's busy share over
+     profiled 128x128 passes of both and K6's part of C6's.
 Every kernel time comes with its bound (bound()): the larger of its
 operations over the float32 peak and its bytes over the memory rate,
-counted from this run's inputs (for K6 the pairs its cull let through).
+counted from this run's inputs.  K5 and K6 share one (sweep_bound): the
+(ray, 128-triangle cluster) pairs that any front-to-back sweep needs,
+those whose box the ray enters before its own hit
+(cuda_triangles.needed_cluster_pairs).
 The last lines are a JSON kernel record (K1 once per zy path, with the
 launches of the forward render of phase 3 and of the fwd+bwd of phase
 7, K2 with those of phase 7 and the time of index_add_ on its rows, K3
@@ -173,17 +184,28 @@ def profile_device(fn):
     return wall_ms, kernels
 
 
+def per_launch(kernels, kernel_name: str = ""):
+    """Device ms per launch of the kernels of a profile_device trace whose
+    name holds ``kernel_name`` (all of them with ""), over the launches
+    the profiler saw: after an earlier session it can miss the first
+    ctypes launch of the next one, so dividing by the calls made would
+    undercount (by 1/3 in a 3-call session).  "not measured" where it saw
+    none."""
+    seen = [(n, ms) for name, (n, ms) in kernels.items() if kernel_name in name]
+    launches = sum(n for n, _ in seen)
+    return sum(ms for _, ms in seen) / launches if launches else "not measured"
+
+
 def profile_pair(kernel_fn, plain_fn, calls: int, kernel_name: str):
-    """Device ms per call of a kernel and of its plain version from one
-    torch.profiler session that alternates them (a session of the
-    ctypes-launched kernel alone has come back empty): events whose name
-    holds ``kernel_name`` are the kernel's, all others the plain
-    version's.  "not measured" where the profiler saw none."""
+    """Device ms of a kernel per launch (per_launch) and of its plain
+    version per call, from one torch.profiler session that alternates
+    them (a session of the ctypes-launched kernel alone has come back
+    empty): events whose name holds ``kernel_name`` are the kernel's, all
+    others the plain version's.  "not measured" where the profiler saw
+    none."""
     _, kernels = profile_device(lambda: [(kernel_fn(), plain_fn()) for _ in range(calls)])
-    mine = [ms for name, (_, ms) in kernels.items() if kernel_name in name]
     rest = [ms for name, (_, ms) in kernels.items() if kernel_name not in name]
-    per_call = lambda ms: sum(ms) / calls if ms else "not measured"
-    return per_call(mine), per_call(rest)
+    return per_launch(kernels, kernel_name), sum(rest) / calls if rest else "not measured"
 
 
 def interior_rays(n: int, seed: int):
@@ -498,7 +520,7 @@ def gradient_phases(scene, bundle, smi: str) -> dict:
           f"bound {k2_bound[0]!r} ms by {k2_bound[1]}")
     if k_dev and p_dev and tile_dev:
         print(f"[8] device time per tile's rows (torch.profiler, 10 runs): kernel "
-              f"{sum(ms for _, ms in k_dev.values()) / 10!r} ms, plain "
+              f"{per_launch(k_dev) * len(tile_rows)!r} ms, plain "
               f"{sum(ms for _, ms in p_dev.values()) / 10!r} ms, index_add_ "
               f"{sum(ms for _, ms in l_dev.values()) / 10 if l_dev else 'not measured'!r} ms")
         busy = sum(ms for _, ms in tile_dev.values())
@@ -554,31 +576,54 @@ def compare_k3(ci, sph, rect, ro, rd, what: str) -> float:
     return err
 
 
-def compare_k5(ct, tri, origin, ro, rd, what: str) -> float:
-    """K5 against triangle_sweep_plain (in 65,536-ray slices); returns
-    the largest |dt| over hit rays."""
+def agree(tag: str, what: str, n: int, got, want) -> float:
+    """Print and check that a sweep's (t, idx, found) equal a plain
+    version's: found and idx equal, t bit-equal on hits.  Returns the
+    largest |dt| over hits."""
     import torch
 
+    t, idx, found = got
+    pt, pidx, pfound = want
+    both = found & pfound
+    n_t = int((t[both] != pt[both]).sum())
+    err = float((t[both] - pt[both]).abs().max()) if bool(both.any()) else 0.0
+    print(f"[{tag}] {what}: {n} rays, {int(found.sum())} on the mesh "
+          f"({float(found.float().mean()):.4f}); mismatches found={int((found != pfound).sum())} "
+          f"idx={int((idx[both] != pidx[both]).sum())} t(bits)={n_t}; max |dt| = {err!r}")
+    check(torch.equal(found, pfound) and torch.equal(idx[both], pidx[both]) and n_t == 0,
+          f"{what}: the kernel disagrees with the plain version")
+    return err
+
+
+def sweep_stats(ct, stats, n: int, kc: int) -> str:
+    """The per-warp list lengths, sweeps and swept pairs of a launch."""
+    listed, sweeps, pairs = (int(x) for x in stats.tolist())
+    warps = -(-n // ct.WARP_RAYS)
+    return (f"per warp: {listed / warps:.2f} of {kc} clusters listed, {sweeps / warps:.2f} swept; "
+            f"{pairs} (ray, cluster) pairs swept by a lane that could still hit them")
+
+
+def compare_k5(ct, tr, ro, rd, what: str):
+    """K5 against triangle_sweep_plain (dense, in 65,536-ray slices);
+    returns (largest |dt| over hit rays, (t, idx, found))."""
+    import torch
+
+    stats = torch.zeros(3, dtype=torch.int32, device=ro.device)
     before = ct.LAUNCHES
-    t, idx, found = ct.triangle_sweep_cuda(tri, origin, ro, rd, 1e-3, float("inf"))
+    got = ct.triangle_sweep_cuda(tr.sw_table, tr.sw_aabb, tr.sw_origin, ro, rd, 1e-3,
+                                 float("inf"), stats)
     torch.cuda.synchronize()
     check(ct.LAUNCHES == before + 1, "K5 launched")
-    plain = [ct.triangle_sweep_plain(tri, origin, ro[s:s + TILE], rd[s:s + TILE], 1e-3,
-                                     float("inf"))
+    plain = [ct.triangle_sweep_plain(tr.sw_table, tr.sw_origin, ro[s:s + TILE], rd[s:s + TILE],
+                                     1e-3, float("inf"))
              for s in range(0, ro.shape[0], TILE)]
-    pt, pidx, pfound = (torch.cat(x) for x in zip(*plain))
-    both = found & pfound
-    n_t = int((~torch.isclose(t[both], pt[both], rtol=1e-6, atol=0.0)).sum())
-    err = float((t[both] - pt[both]).abs().max()) if bool(both.any()) else 0.0
-    share = float(found.float().mean())
-    print(f"[10] K5 vs plain, {what}: {ro.shape[0]} rays, {int(found.sum())} on the mesh "
-          f"({share:.4f}); mismatches found={int((found != pfound).sum())} "
-          f"idx={int((idx[both] != pidx[both]).sum())} t(rtol 1e-6)={n_t}; max |dt| = {err!r}; "
-          f"t bit-equal on hits {torch.equal(t[both], pt[both])}")
-    check(torch.equal(found, pfound) and torch.equal(idx[both], pidx[both]) and n_t == 0,
-          f"K5 disagrees with its plain version on {what}")
-    check(share > 0.01, f"more than 1 % of the rays hit the mesh on {what}")
-    return err
+    err = agree("10", f"K5 vs plain (dense), {what}", ro.shape[0], got,
+                [torch.cat(x) for x in zip(*plain)])
+    pairs, _ = needed_work(ct, tr, ro, rd, got[0], got[2])
+    print(f"[10]   {pairs} needed (ray, cluster) pairs; "
+          f"{sweep_stats(ct, stats, ro.shape[0], tr.sw_aabb.shape[0])}")
+    check(float(got[2].float().mean()) > 0.01, f"more than 1 % of the rays hit the mesh on {what}")
+    return err, got
 
 
 def scene_json_phases(smi: str) -> dict:
@@ -610,13 +655,18 @@ def scene_json_phases(smi: str) -> dict:
     box_ro, box_rd = interior_rays(TILE, 0)  # scene.json's box is zy's
     k3_err = max(k3_err, compare_k3(ci, sph, rect, box_ro, box_rd, f"{TILE} random rays (seed 0)"))
 
-    # 10. K5 against its plain version
+    # 10. K5 against its plain version (dense, no cull)
     tr = scene.triangles
-    tri = ct.pack_triangle_table(tr)
-    k5_err = compare_k5(ct, tri, tr.sw_origin, ro, rd, f"{SJ_SIZE}^2 scene.json camera rays")
+    k5_err, cam_hit = compare_k5(ct, tr, ro, rd, f"{SJ_SIZE}^2 scene.json camera rays")
     b_ro, b_rd = bunny_rays(TILE, 0)
-    k5_err = max(k5_err, compare_k5(ct, tri, tr.sw_origin, b_ro, b_rd,
-                                    f"{TILE} rays aimed at the bunny (seed 0)"))
+    k5_err = max(k5_err, compare_k5(ct, tr, b_ro, b_rd,
+                                    f"{TILE} rays aimed at the bunny (seed 0)")[0])
+    s_ro, s_rd = secondary_rays(tr, ro, rd, *cam_hit, TILE, 0)
+    k5_err = max(k5_err, compare_k5(ct, tr, s_ro, s_rd,
+                                    f"{TILE} secondary rays from the mesh hits (seed 0)")[0])
+    # the camera-ray tile with the most mesh hits, timed below
+    busiest = int(cam_hit[2][:TILE * (ro.shape[0] // TILE)].reshape(-1, TILE).sum(dim=1).argmax())
+    c_ro, c_rd = ro[busiest * TILE:(busiest + 1) * TILE], rd[busiest * TILE:(busiest + 1) * TILE]
 
     # 11. the main path
     renderer = Renderer(RendererParam(SJ_SIZE, SJ_SIZE, max_depth=SJ_DEPTH), bundle.camera,
@@ -674,21 +724,24 @@ def scene_json_phases(smi: str) -> dict:
     stats_s = start.elapsed_time(end) / 1e3
     saved = (ci.LAUNCHES, ci.TF_LAUNCHES, ct.LAUNCHES)
     k3_args = (sph, rect, box_ro, box_rd, 1e-3, float("inf"))
-    k5_args = (tri, tr.sw_origin, b_ro, b_rd, 1e-3, float("inf"))
+    k5_args = (tr.sw_table, tr.sw_aabb, tr.sw_origin, s_ro, s_rd, 1e-3, float("inf"))
     k3_plain = [cuda_ms(lambda: ci.phase_a_plain(*k3_args), 20)]
     k3_kernel = [cuda_ms(lambda: ci.phase_a_cuda(*k3_args), 100) for _ in range(2)]
     k3_plain.append(cuda_ms(lambda: ci.phase_a_plain(*k3_args), 20))
-    k5_plain = [cuda_ms(lambda: ct.triangle_sweep_plain(*k5_args), 3)]
-    k5_kernel = [cuda_ms(lambda: ct.triangle_sweep_cuda(*k5_args), 10) for _ in range(2)]
-    k5_plain.append(cuda_ms(lambda: ct.triangle_sweep_plain(*k5_args), 3))
+    plain5 = lambda: ct.triangle_sweep_plain(tr.sw_table, tr.sw_origin, s_ro, s_rd, 1e-3,
+                                             float("inf"))
+    k5_plain = [cuda_ms(plain5, 3)]
+    k5 = time_sweep_tiles(ct, tr, ct.triangle_sweep_cuda, "triangle_sweep_kernel", (
+        (f"camera-ray tile {busiest}", c_ro, c_rd), ("the bunny-aimed tile", b_ro, b_rd),
+        ("the secondary tile", s_ro, s_rd)), "13")
+    k5_plain.append(cuda_ms(plain5, 3))
     small_renderer.render(30)
     pass_wall, pass_dev = profile_device(lambda: small_renderer.render(31))
     dev_ms = dict(zip(("k3", "k3_plain"), profile_pair(
         lambda: ci.phase_a_cuda(*k3_args), lambda: ci.phase_a_plain(*k3_args), 10,
         "phase_a_kernel")))
-    dev_ms.update(zip(("k5", "k5_plain"), profile_pair(
-        lambda: ct.triangle_sweep_cuda(*k5_args), lambda: ct.triangle_sweep_plain(*k5_args), 3,
-        "triangle_sweep_kernel")))
+    dev_ms["k5_plain (secondary tile)"] = profile_pair(
+        lambda: ct.triangle_sweep_cuda(*k5_args), plain5, 3, "triangle_sweep_kernel")[1]
     ci.LAUNCHES, ci.TF_LAUNCHES, ct.LAUNCHES = saved
     print(f"[13] card: {smi}")
     print(f"[13] ms per {SJ_SIZE}^2 depth-{SJ_DEPTH} scene.json pass: {pass_ms!r} "
@@ -697,27 +750,51 @@ def scene_json_phases(smi: str) -> dict:
           f"{segments / stats_s!r} segments/s")
     print(f"[13] K3 on a {TILE}-ray tile: kernel {k3_kernel!r} ms, plain {k3_plain!r} ms "
           f"(plain, kernel, kernel, plain)")
-    print(f"[13] K5 on a {TILE}-ray tile ({scene.n_triangles} triangles): kernel {k5_kernel!r} "
-          f"ms, plain {k5_plain!r} ms (plain, kernel, kernel, plain)")
+    print(f"[13] K5's plain version on the secondary tile ({scene.n_triangles} triangles): "
+          f"{k5_plain!r} ms by events (before and after the kernel's timings)")
     print(f"[13] device ms per call (torch.profiler; 'not measured' where it saw no device "
           f"time): {dev_ms!r}")
-    if pass_dev:
-        busy = sum(ms for _, ms in pass_dev.values())
-        print(f"[13] profiled 128^2 depth-{SJ_DEPTH} scene.json pass: wall {pass_wall!r} ms, "
-              f"device busy {busy!r} ms ({busy / pass_wall!r} of wall), "
-              f"{sum(n for n, _ in pass_dev.values())} device kernels")
-        for name, (n, ms) in sorted(pass_dev.items(), key=lambda kv: -kv[1][1])[:8]:
-            print(f"[13]   {ms!r} ms in {n} launches: {name[:90]}")
-    else:
-        print("[13] torch.profiler saw no device time in the 128^2 pass: busy share not measured")
+    busy_share(pass_dev, pass_wall, "13", f"128^2 depth-{SJ_DEPTH} scene.json pass")
+    share = kernel_share(pass_dev, "triangle_sweep_kernel")
+    if share:
+        print(f"[13] K5 in that pass: {share[0]!r} ms in {share[1]} launches, {share[2]!r} of "
+              f"device busy")
     k3_bound = phase_a_bound(ci, sph, rect, TILE)
-    k5_bound = sweep_bound(TILE, scene.n_triangles, TILE * scene.n_triangles)
-    print(f"[13] bounds: K3 {k3_bound[0]!r} ms by {k3_bound[1]}, K5 {k5_bound[0]!r} ms by "
-          f"{k5_bound[1]}")
+    k5_ms, _, k5_bound = k5["the secondary tile"]
+    print(f"[13] bounds: K3 {k3_bound[0]!r} ms by {k3_bound[1]}, K5 (secondary tile) "
+          f"{k5_bound[0]!r} ms by {k5_bound[1]}")
     return dict(launches=launches, k3_err=k3_err, k5_err=k5_err,
                 k3_ms=sum(k3_kernel) / 2, k3_plain_ms=sum(k3_plain) / 2,
-                k5_ms=sum(k5_kernel) / 2, k5_plain_ms=sum(k5_plain) / 2,
+                k5_ms=k5_ms, k5_plain_ms=sum(k5_plain) / 2,
                 k3_bound=k3_bound, k5_bound=k5_bound)
+
+
+def time_sweep_tiles(ct, tr, launch, kernel_name: str, tiles, tag: str) -> dict:
+    """Time a sweep kernel, ``launch(tri, aabb, origin, ro, rd, t_min,
+    t_max, stats=None)``, on each (label, ro, rd) tile of the table ``tr``:
+    CUDA events over 10 calls, twice, and torch.profiler's device time
+    per launch over 10 (device_ms), printed beside the needed (ray, cluster) pairs, the bound
+    (sweep_bound), the share and the per-warp list lengths and sweeps.
+    Returns {label: (events ms, device ms, bound)}."""
+    import torch
+
+    out = {}
+    for label, ro, rd in tiles:
+        args = (tr.sw_table, tr.sw_aabb, tr.sw_origin, ro, rd, 1e-3, float("inf"))
+        stats = torch.zeros(3, dtype=torch.int32, device=ro.device)
+        t, _, found = launch(*args, stats)
+        pairs, tri_pairs = needed_work(ct, tr, ro, rd, t, found)
+        bnd = sweep_bound(ro.shape[0], tr.v0.shape[0], tr.sw_aabb.shape[0], pairs, tri_pairs)
+        ev = [cuda_ms(lambda: launch(*args), 10) for _ in range(2)]
+        dev = device_ms(lambda: launch(*args), 10, kernel_name)
+        share = (f"{bnd[0] / dev:.4f} (device)" if isinstance(dev, float)
+                 else f"{bnd[0] / max(ev):.4f} (events)")
+        print(f"[{tag}] {kernel_name} on {label} ({ro.shape[0]} rays, {int(found.sum())} on the "
+              f"mesh): device {dev!r} ms, events {ev!r} ms; {pairs} needed (ray, cluster) pairs, "
+              f"bound {bnd[0]!r} ms by {bnd[1]}, share {share}; "
+              f"{sweep_stats(ct, stats, ro.shape[0], tr.sw_aabb.shape[0])}")
+        out[label] = (sum(ev) / 2, dev, bnd)
+    return out
 
 
 def bound(flops: float, nbytes: float):
@@ -740,12 +817,82 @@ def phase_a_bound(ci, sph, rect, n: int):
     return bound(flops, n * (36 + (4 if motion else 0)) + 4 * (sph.numel() + rect.numel()))
 
 
-def sweep_bound(n: int, n_tri: int, pairs: int, n_clusters: int = 0):
-    """bound() of a triangle sweep over ``n`` rays: rays (24 B) in,
-    winners (9 B) out, the (T, 16) table and any (Kc, 6) boxes once;
-    ``pairs`` ray-triangle tests and a slab test per ray and cluster."""
-    flops = pairs * TRI_FLOPS + n * n_clusters * SLAB_FLOPS
-    return bound(flops, n * 33 + 64 * n_tri + 24 * n_clusters)
+def needed_work(ct, tr, ro, rd, t, found):
+    """The work any front-to-back sweep over the table's 128-triangle
+    clusters needs for these rays and their final winners (t, found):
+    (needed (ray, cluster) pairs, ray-triangle tests of those pairs,
+    counting only the real triangles of a short last cluster)."""
+    import torch
+
+    t_hit = torch.where(found, t, torch.full_like(t, float("inf")))
+    counts = ct.needed_cluster_pairs(tr.sw_aabb, tr.sw_origin, ro, rd, 1e-3, t_hit)
+    sizes = (tr.v0.shape[0] - torch.arange(counts.shape[0], device=counts.device) * ct.CL_CHUNK
+             ).clamp(max=ct.CL_CHUNK)
+    return int(counts.sum()), int((counts * sizes).sum())
+
+
+def sweep_bound(n: int, n_tri: int, n_clusters: int, pairs: int, tri_pairs: int):
+    """bound() of a triangle sweep over ``n`` rays, the same for K5 and
+    K6: rays (24 B) in, winners (9 B) out, the (T, 16) table and the
+    (Kc, 6) boxes once; a slab test per needed (ray, cluster) pair and a
+    triangle test per triangle of it (needed_work)."""
+    return bound(tri_pairs * TRI_FLOPS + pairs * SLAB_FLOPS,
+                 n * 33 + 64 * n_tri + 24 * n_clusters)
+
+
+def secondary_rays(tr, ro, rd, t, idx, found, n: int, seed: int):
+    """``n`` secondary rays from the mesh hits of camera rays (ro, rd) with
+    winners (t, idx, found): origins ro + rd t (the sweep's t_min offsets
+    them), directions cosine-distributed (numpy, seeded) about the hit
+    triangle's geometric normal turned back toward the incoming ray.  The
+    hits go in ray order, repeated with fresh directions to fill ``n``
+    rays, or evenly thinned when there are more."""
+    import numpy as np
+    import torch
+
+    hits = torch.nonzero(found)[:, 0]
+    pick = hits[torch.from_numpy(np.resize(np.arange(hits.shape[0]), n)).to(hits.device)
+                if hits.shape[0] <= n else
+                torch.linspace(0, hits.shape[0] - 1, n, device=hits.device).long()]
+    o = ro[pick] + rd[pick] * t[pick, None]
+    nrm = tr.sw_n[idx[pick].long()].double()
+    nrm = nrm / nrm.norm(dim=1, keepdim=True)
+    nrm = torch.where(((nrm * rd[pick].double()).sum(dim=1) > 0)[:, None], -nrm, nrm)
+    r = np.random.RandomState(seed)
+    u1, u2 = (torch.from_numpy(r.uniform(0.0, 1.0, n)).to(ro.device) for _ in range(2))
+    # an orthonormal basis (a, b, nrm) per ray
+    helper = torch.where((nrm[:, 0].abs() > 0.9)[:, None],
+                         torch.tensor([0.0, 1.0, 0.0], dtype=torch.float64, device=ro.device),
+                         torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64, device=ro.device))
+    a = torch.linalg.cross(helper, nrm)
+    a = a / a.norm(dim=1, keepdim=True)
+    b = torch.linalg.cross(nrm, a)
+    phi = 2.0 * np.pi * u2
+    radius = torch.sqrt(u1)
+    d = ((a * (radius * torch.cos(phi))[:, None] + b * (radius * torch.sin(phi))[:, None])
+         + nrm * torch.sqrt(1.0 - u1)[:, None])
+    d = d / d.norm(dim=1, keepdim=True)
+    return o.contiguous(), d.float().contiguous()
+
+
+def device_ms(fn, calls: int, kernel_name: str):
+    """Device ms per launch of a kernel by torch.profiler, paired with a
+    small PyTorch op (profile_pair)."""
+    import torch
+
+    x = torch.zeros(1 << 20, device="cuda")
+    return profile_pair(fn, lambda: x.add_(1.0), calls, kernel_name)[0]
+
+
+def kernel_share(pass_dev, kernel_name: str):
+    """(device ms, launches, share of device busy) of the kernels whose
+    name holds ``kernel_name`` in a profiled pass; None without a trace."""
+    if not pass_dev:
+        return None
+    busy = sum(ms for _, ms in pass_dev.values())
+    ms = sum(m for name, (_, m) in pass_dev.items() if kernel_name in name)
+    calls = sum(c for name, (c, _) in pass_dev.items() if kernel_name in name)
+    return ms, calls, ms / busy
 
 
 def grid_rays(n: int, seed: int):
@@ -776,40 +923,34 @@ def copies_rays(n: int, seed: int):
             torch.from_numpy(rd.astype(np.float32)).cuda())
 
 
-def compare_k6(ct, tr, ro, rd, what: str):
+def compare_k6(ct, tr, ro, rd, what: str, dense: bool = False):
     """K6 against cluster_sweep_plain (in 65,536-ray slices) on the same
-    card tensors; returns (largest |dt| over hits, found per ray)."""
+    card tensors, and with ``dense`` against triangle_sweep_plain too;
+    returns (largest |dt| over hits, (t, idx, found))."""
     import torch
 
-    tri, aabb = ct.pack_triangle_table(tr), ct.pack_cluster_aabbs(tr)
     stats = torch.zeros(3, dtype=torch.int32, device=ro.device)
     before = ct.CL_LAUNCHES
-    t, idx, found = ct.cluster_sweep_cuda(tri, aabb, tr.sw_origin, ro, rd, 1e-3, float("inf"),
-                                          stats)
+    got = ct.cluster_sweep_cuda(tr.sw_table, tr.sw_aabb, tr.sw_origin, ro, rd, 1e-3,
+                                float("inf"), stats)
     torch.cuda.synchronize()
     check(ct.CL_LAUNCHES == before + 1, "K6 launched")
+    n, kc = ro.shape[0], tr.sw_aabb.shape[0]
     plain = [ct.cluster_sweep_plain(tr, ro[s:s + TILE], rd[s:s + TILE], 1e-3, float("inf"))
-             for s in range(0, ro.shape[0], TILE)]
-    pt, pidx, pfound = (torch.cat(x) for x in zip(*plain))
-    both = found & pfound
-    n_t = int((~torch.isclose(t[both], pt[both], rtol=1e-6, atol=0.0)).sum())
-    err = float((t[both] - pt[both]).abs().max()) if bool(both.any()) else 0.0
-    n, kc = ro.shape[0], aabb.shape[0]
-    blocks = -(-n // ct.CL_THREADS)
-    loads, sweeps, needs = (int(x) for x in stats.tolist())
-    share = float(found.float().mean())
-    print(f"[15] K6 vs plain, {what}: {n} rays x {tr.v0.shape[0]} triangles ({kc} clusters of "
-          f"{ct.CL_CHUNK}), {int(found.sum())} on the mesh ({share:.4f}); mismatches "
-          f"found={int((found != pfound).sum())} idx={int((idx[both] != pidx[both]).sum())} "
-          f"t(rtol 1e-6)={n_t}; max |dt| = {err!r}; t bit-equal on hits "
-          f"{torch.equal(t[both], pt[both])}; the cull let through {loads} of {blocks * kc} "
-          f"(block, cluster) pairs ({loads / (blocks * kc):.4f}), {sweeps} of "
-          f"{blocks * (ct.CL_THREADS // 32) * kc} (warp, cluster) sweeps, {needs} of {n * kc} "
-          f"(ray, cluster) pairs ({needs / (n * kc):.4f})")
-    check(torch.equal(found, pfound) and torch.equal(idx[both], pidx[both]) and n_t == 0,
-          f"K6 disagrees with its plain version on {what}")
-    check(share > 0.01, f"more than 1 % of the rays hit the mesh on {what}")
-    return err, found
+             for s in range(0, n, TILE)]
+    err = agree("15", f"K6 vs plain, {what} ({tr.v0.shape[0]} triangles, {kc} clusters of "
+                f"{ct.CL_CHUNK})", n, got, [torch.cat(x) for x in zip(*plain)])
+    if dense:
+        plain = [ct.triangle_sweep_plain(tr.sw_table, tr.sw_origin, ro[s:s + TILE],
+                                         rd[s:s + TILE], 1e-3, float("inf"))
+                 for s in range(0, n, TILE)]
+        err = max(err, agree("15", f"K6 vs the dense plain version, {what}", n, got,
+                             [torch.cat(x) for x in zip(*plain)]))
+    pairs, _ = needed_work(ct, tr, ro, rd, got[0], got[2])
+    print(f"[15]   {pairs} of {n * kc} (ray, cluster) pairs needed ({pairs / (n * kc):.4f}); "
+          f"{sweep_stats(ct, stats, n, kc)}")
+    check(float(got[2].float().mean()) > 0.01, f"more than 1 % of the rays hit the mesh on {what}")
+    return err, got
 
 
 def compare_k4(ci, sph, rect, ro, rd, t_ray, what: str) -> float:
@@ -900,16 +1041,21 @@ def bunny_grid_phases(smi: str) -> dict:
     cam = Camera.build(cam_param, 1.0).to(dev)
     ro, rd, _, _ = camera_rays(cam, rng.key(0), C6_SIZE, C6_SIZE)
     ro, rd = ro.contiguous(), rd.contiguous()
-    k6_err, found = compare_k6(ct, tr, ro, rd, f"{C6_SIZE}^2 C6 camera rays")
+    k6_err, cam_hit = compare_k6(ct, tr, ro, rd, f"{C6_SIZE}^2 C6 camera rays")
     # the main path's tile of camera rays with the most mesh hits (the
     # first tiles look at the sky), where K6 is timed below
+    found = cam_hit[2]
     busiest = int(found.reshape(-1, TILE).sum(dim=1).argmax())
     tile = slice(busiest * TILE, (busiest + 1) * TILE)
     g_ro, g_rd = grid_rays(TILE, 0)
     k6_err = max(k6_err, compare_k6(ct, tr, g_ro, g_rd,
                                     f"{TILE} rays aimed at the grid (seed 0)")[0])
+    # what C6's lambertian bunnies send on: secondary rays from the hits
+    s_ro, s_rd = secondary_rays(tr, ro, rd, *cam_hit, TILE, 0)
+    k6_err = max(k6_err, compare_k6(ct, tr, s_ro, s_rd, f"{TILE} secondary rays from the mesh "
+                                    "hits (seed 0)", dense=True)[0])
     copies = scenes.bunny_copies(27).to(dev).triangles
-    check(ct.pack_cluster_aabbs(copies).shape[0] > 1024, "27 copies pass 1024 clusters")
+    check(copies.sw_aabb.shape[0] > 1024, "27 copies pass 1024 clusters")
     c_ro, c_rd = copies_rays(TILE, 2)
     k6_err = max(k6_err, compare_k6(ct, copies, c_ro, c_rd,
                                     f"{TILE} rays on 27 bunnies (seed 2; K7's case)")[0])
@@ -935,35 +1081,35 @@ def bunny_grid_phases(smi: str) -> dict:
     check(torch.equal(on_card, on_cpu), "C6 depth-1 image on the card equals the CPU render")
     print("[16] 32^2 depth 1: the card image equals the CPU render (torch.equal)")
 
-    # 19. timings: the pass, and K6 on the main path's first tile
+    # 19. timings: the pass, and K6 on the busiest camera tile and the
+    # secondary tile; the plain version on the secondary tile
     pass_ms, segments, seg_s = pass_timings(renderer, (10, 11))
     saved = (ci.LAUNCHES, ct.LAUNCHES, ct.CL_LAUNCHES)
-    tri, aabb = ct.pack_triangle_table(tr), ct.pack_cluster_aabbs(tr)
-    k6_args = (tri, aabb, tr.sw_origin, ro[tile], rd[tile], 1e-3, float("inf"))
-    stats = torch.zeros(3, dtype=torch.int32, device=dev)
-    ct.cluster_sweep_cuda(*k6_args, stats)
-    plain = lambda: ct.cluster_sweep_plain(tr, ro[tile], rd[tile], 1e-3, float("inf"))
-    k6_plain = [cuda_ms(plain, 3)]
-    k6_kernel = [cuda_ms(lambda: ct.cluster_sweep_cuda(*k6_args), 20) for _ in range(2)]
-    k6_plain.append(cuda_ms(plain, 3))
-    dev_ms = dict(zip(("k6", "k6_plain"), profile_pair(
-        lambda: ct.cluster_sweep_cuda(*k6_args), plain, 3, "cluster_sweep_kernel")))
+    k6_args = (tr.sw_table, tr.sw_aabb, tr.sw_origin, s_ro, s_rd, 1e-3, float("inf"))
+    plain = lambda: ct.cluster_sweep_plain(tr, s_ro, s_rd, 1e-3, float("inf"))
+    k6_plain = [cuda_ms(plain, 2)]
+    k6 = time_sweep_tiles(ct, tr, ct.cluster_sweep_cuda, "cluster_sweep_kernel", (
+        (f"C6 camera-ray tile {busiest}", ro[tile].contiguous(), rd[tile].contiguous()),
+        ("the C6 secondary tile", s_ro, s_rd)), "19")
+    k6_plain.append(cuda_ms(plain, 2))
+    plain_dev = profile_pair(lambda: ct.cluster_sweep_cuda(*k6_args), plain, 2,
+                             "cluster_sweep_kernel")[1]
     small_renderer = Renderer(RendererParam(128, 128), cam_param, host_scene, device="cuda")
     small_renderer.render(30)
     pass_wall, pass_dev = profile_device(lambda: small_renderer.render(31))
     ci.LAUNCHES, ct.LAUNCHES, ct.CL_LAUNCHES = saved
-    loads, sweeps, needs = (int(x) for x in stats.tolist())
-    k6_bound = sweep_bound(TILE, tr.v0.shape[0], needs * ct.CL_CHUNK, aabb.shape[0])
+    k6_ms, _, k6_bound = k6["the C6 secondary tile"]
     print(f"[19] card: {smi}")
     print(f"[19] ms per {C6_SIZE}^2 depth-{renderer.max_depth} C6 pass: {pass_ms!r}; "
           f"render_with_stats: {segments} segments, {seg_s!r} segments/s")
-    print(f"[19] K6 on C6 camera-ray tile {busiest} ({TILE} rays, "
-          f"{int(found[tile].sum())} on the mesh): kernel {k6_kernel!r} ms, plain "
-          f"{k6_plain!r} ms (plain, kernel, kernel, plain); device ms per call (torch.profiler) "
-          f"{dev_ms!r}; the cull let through {needs} (ray, cluster) pairs ({loads} block loads, "
-          f"{sweeps} warp sweeps); bound {k6_bound[0]!r} ms by {k6_bound[1]}")
+    print(f"[19] K6's plain version on the secondary tile: {k6_plain!r} ms by events (before and "
+          f"after the kernel's timings), {plain_dev!r} ms device (torch.profiler)")
     busy_share(pass_dev, pass_wall, "19", f"128^2 depth-{small_renderer.max_depth} C6 pass")
-    return dict(launches=launches, k6_err=k6_err, k6_ms=sum(k6_kernel) / 2,
+    share = kernel_share(pass_dev, "cluster_sweep_kernel")
+    if share:
+        print(f"[19] K6 in that pass: {share[0]!r} ms in {share[1]} launches, {share[2]!r} of "
+              f"device busy")
+    return dict(launches=launches, k6_err=k6_err, k6_ms=k6_ms,
                 k6_plain_ms=sum(k6_plain) / 2, k6_bound=k6_bound)
 
 
@@ -1195,7 +1341,7 @@ def main() -> int:
           f"(plain, kernel, kernel, plain); bound {k1_bound[0]!r} ms by {k1_bound[1]}")
     if k_dev and p_dev:
         print(f"[5] device time per call (torch.profiler, 20 calls): kernel "
-              f"{sum(ms for _, ms in k_dev.values()) / 20!r} ms, plain "
+              f"{per_launch(k_dev)!r} ms, plain "
               f"{sum(ms for _, ms in p_dev.values()) / 20!r} ms in "
               f"{sum(n for n, _ in p_dev.values()) / 20!r} device kernels")
         busy = sum(ms for _, ms in pass_dev.values())

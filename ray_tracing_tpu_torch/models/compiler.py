@@ -51,6 +51,7 @@ from ray_tracing_tpu_torch.models.scene import (
     TriangleTable,
     identity_transform_table,
     make_medium_boundary,
+    pack_sweep_kernel_tables,
     pack_triangle_clusters,
     pack_triangle_sweep,
 )
@@ -458,7 +459,7 @@ class SceneBuilder:
             material=t(np.asarray([tr["material"] for tr in self._triangles], i32)),
         )
         if nt:
-            triangles = pack_triangle_sweep(triangles)
+            triangles = pack_sweep_kernel_tables(pack_triangle_sweep(triangles))
             if nt >= self.BVH_THRESHOLD:
                 # Morton order makes consecutive triangles spatial clusters
                 triangles = pack_triangle_clusters(triangles)

@@ -80,8 +80,10 @@ class SphereTable(_Table):
 class TriangleTable(_Table):
     """Triangles with their transforms baked into the vertices, plus the
     dense-sweep constants of :func:`pack_triangle_sweep` (None on an
-    empty table) and the cluster tables of :func:`pack_triangle_clusters`
-    (None unless the table was Morton-sorted)."""
+    empty table) with the CUDA sweeps' tables of
+    :func:`pack_sweep_kernel_tables`, and the cluster tables of
+    :func:`pack_triangle_clusters` (None unless the table was
+    Morton-sorted)."""
 
     v0: torch.Tensor  # (T, 3)
     e12: torch.Tensor  # (T, 3) v1 - v0
@@ -108,6 +110,10 @@ class TriangleTable(_Table):
     cl_g1: Optional[torch.Tensor] = None  # (K, C, 3)
     cl_g2: Optional[torch.Tensor] = None  # (K, C, 3)
     cl_d0: Optional[torch.Tensor] = None  # (K, C)
+    # the CUDA sweeps' tables (ops/cuda_triangles.py), packed once per
+    # scene by pack_sweep_kernel_tables; None without sweep constants
+    sw_table: Optional[torch.Tensor] = None  # (T, 16) [e12 e13 n g1 g2 d0]
+    sw_aabb: Optional[torch.Tensor] = None  # (ceil(T / KERNEL_CLUSTER), 6) padded boxes
 
     def __len__(self):
         return self.v0.shape[0]
@@ -129,6 +135,51 @@ def pack_triangle_sweep(tris: TriangleTable) -> TriangleTable:
         for x in triangle_sweep_tables(tris.v0.numpy(), tris.e12.numpy(), tris.e13.numpy())
     )
     return dataclasses.replace(tris, sw_origin=origin, sw_n=n, sw_g1=g1, sw_g2=g2, sw_d0=d0)
+
+
+KERNEL_CLUSTER = 128  # triangles per cluster of the CUDA sweeps (csrc/triangles.cu:kClusterTris)
+AABB_PAD_ULPS = 4  # outward padding of a kernel cluster box, in float32 eps of its reach
+
+
+def pack_triangle_table(tris: TriangleTable) -> torch.Tensor:
+    """(T, 16) float32 rows [e12 e13 n g1 g2 d0] on the table's device
+    (the row-major counterpart of pallas_triangles.py:pack_triangle_table)."""
+    return torch.cat(
+        [tris.e12, tris.e13, tris.sw_n, tris.sw_g1, tris.sw_g2, tris.sw_d0[:, None]], dim=1
+    ).contiguous()
+
+
+def pack_cluster_aabbs(tris: TriangleTable) -> torch.Tensor:
+    """(Kc, 6) float32 rows [lo(3) hi(3)]: the AABB of each
+    ``KERNEL_CLUSTER`` consecutive triangles in sweep-origin space, Kc =
+    ceil(T / KERNEL_CLUSTER), grown on every side by ``AABB_PAD_ULPS`` x
+    float32 eps x the box's reach (its largest |coordinate|), a few ulps
+    of it: rounding on a face cannot cull a hit (the Pallas kernel's
+    pack_chunk_aabbs at cl_chunk 128 gives the boxes before padding).
+    The last cluster may be short; the kernels sweep only its real rows."""
+    v0 = tris.v0 - tris.sw_origin
+    corners = torch.stack([v0, v0 + tris.e12, v0 + tris.e13])  # (3, T, 3)
+    t = v0.shape[0]
+    pad = -t % KERNEL_CLUSTER
+    kc = (t + pad) // KERNEL_CLUSTER
+
+    def grouped(fill):
+        c = torch.nn.functional.pad(corners, (0, 0, 0, pad), value=fill)
+        return c.reshape(3, kc, KERNEL_CLUSTER, 3)
+
+    lo = grouped(float("inf")).amin(dim=(0, 2))
+    hi = grouped(-float("inf")).amax(dim=(0, 2))
+    reach = torch.maximum(lo.abs(), hi.abs()).amax(dim=1, keepdim=True)
+    margin = AABB_PAD_ULPS * float(np.finfo(np.float32).eps) * reach
+    return torch.cat([lo - margin, hi + margin], dim=1).contiguous()
+
+
+def pack_sweep_kernel_tables(tris: TriangleTable) -> TriangleTable:
+    """Attach the CUDA sweeps' (T, 16) table and (Kc, 6) padded cluster
+    boxes to a table with sweep constants, once per scene; ``.to``
+    moves them with the rest."""
+    return dataclasses.replace(tris, sw_table=pack_triangle_table(tris),
+                               sw_aabb=pack_cluster_aabbs(tris))
 
 
 CLUSTER_SIZE = 4096  # triangles per cluster of the two-level sweep
@@ -380,10 +431,13 @@ def scene_from_numpy(tree) -> SceneData:
     lt = tree.lights
     md = tree.media
     vel = tree.spheres.vel
+    triangles = _tensors(TriangleTable, tree.triangles)
+    if triangles.has_sweep:
+        triangles = pack_sweep_kernel_tables(triangles)
     return SceneData(
         spheres=_tensors(SphereTable, tree.spheres, vel=torch.from_numpy(
             np.zeros((int(tree.n_spheres), 3), np.float32) if vel is None else np.array(vel))),
-        triangles=_tensors(TriangleTable, tree.triangles),
+        triangles=triangles,
         rects=_tensors(RectTable, tree.rects),
         transforms=_tensors(TransformTable, tree.transforms),
         materials=_tensors(MaterialTable, tree.materials),

@@ -5,17 +5,21 @@ The counterpart of ``ray_tracing_tpu/ops/pallas_triangles.py``: the
 CUDA kernels in ``csrc/triangles.cu`` replace ``pallas_triangles.py:
 _kernel`` (K5, with its body ``_tri_sweep_body``) and
 ``_cluster_kernel`` / ``_cluster_kernel_paged`` (K6 and K7, one kernel
-here).  Both are bound by arithmetic (~40 flops per ray-triangle pair)
-and stream the (T, 16) table through shared memory; K6 loads a
-``CL_CHUNK``-triangle cluster only when a ray of the block can still
-hit its AABB.  :func:`triangle_sweep_plain` computes K5's function from
-the candidate grids of ``geometry.triangle_sweep_t``, walking the table
-in chunks with a running best so that its memory stays bounded;
+here).  Both run one traversal: each warp of 32 rays lists the
+``CL_CHUNK``-triangle clusters whose padded box some lane enters, sorts
+the list by entry distance and sweeps it front to back, skipping a
+cluster that no lane can still hit before its best.  The work they must
+do is counted by :func:`needed_cluster_pairs`.
+:func:`triangle_sweep_plain` computes K5's function from the candidate
+grids of ``geometry.triangle_sweep_t``, walking the table in chunks
+with a running best so that its memory stays bounded;
 :func:`cluster_sweep_plain` computes K6's with
 ``geometry.triangle_cluster_sweep_t`` on the scene's cluster tables.
 
 :func:`triangle_sweep` and :func:`cluster_sweep` launch the kernels for
-CUDA tensors and take the plain versions only for CPU tensors.  All are
+CUDA tensors and take the plain versions only for CPU tensors; both
+read the (T, 16) table and the (Kc, 6) boxes that the compiler packed
+once per scene (``TriangleTable.sw_table`` / ``sw_aabb``).  All are
 selection only, on detached inputs; gradients flow through phase B
 (ops/intersect.py).
 """
@@ -26,49 +30,26 @@ import ctypes
 
 import torch
 
-from ray_tracing_tpu_torch.models.scene import TriangleTable
+from ray_tracing_tpu_torch.models.scene import (  # noqa: F401 (re-exported)
+    KERNEL_CLUSTER,
+    TriangleTable,
+    pack_cluster_aabbs,
+    pack_triangle_table,
+)
 from ray_tracing_tpu_torch.ops import _build
 from ray_tracing_tpu_torch.ops import geometry as geo
 
 SOURCE = _build.CSRC / "triangles.cu"
 TRI_COLS = 16  # [e12(3) e13(3) n(3) g1(3) g2(3) d0]
 PLAIN_CHUNK = 1024  # triangles per candidate grid of the plain version
-CL_CHUNK = 128  # triangles per cluster of K6 (csrc/triangles.cu:kClusterTris)
-CL_THREADS = 128  # rays per block of K6 (csrc/triangles.cu:kClusterThreads)
+CL_CHUNK = KERNEL_CLUSTER  # triangles per cluster of K5 and K6 (csrc/triangles.cu:kClusterTris)
+WARP_RAYS = 32  # rays per warp, the unit of the kernels' decisions
+NEEDED_CHUNK = 8192  # rays per (rays x clusters) grid of needed_cluster_pairs
 
 LAUNCHES = 0  # K5 launches since the last reset
 CL_LAUNCHES = 0  # K6 launches since the last reset
 
 _lib = None
-
-
-def pack_triangle_table(tris: TriangleTable) -> torch.Tensor:
-    """(T, 16) float32 rows [e12 e13 n g1 g2 d0] on the table's device
-    (the row-major counterpart of pallas_triangles.py:pack_triangle_table)."""
-    return torch.cat(
-        [tris.e12, tris.e13, tris.sw_n, tris.sw_g1, tris.sw_g2, tris.sw_d0[:, None]], dim=1
-    ).contiguous()
-
-
-def pack_cluster_aabbs(tris: TriangleTable) -> torch.Tensor:
-    """(Kc, 6) float32 rows [lo(3) hi(3)]: the AABB of each ``CL_CHUNK``
-    consecutive triangles in sweep-origin space, Kc = ceil(T / CL_CHUNK)
-    (the row-major counterpart of pallas_triangles.py:pack_chunk_aabbs).
-    The last cluster may be short; K6 sweeps only its real rows, as if
-    the table were zero-padded (n == 0, so det masks padding out)."""
-    v0 = tris.v0 - tris.sw_origin
-    corners = torch.stack([v0, v0 + tris.e12, v0 + tris.e13])  # (3, T, 3)
-    t = v0.shape[0]
-    pad = -t % CL_CHUNK
-    kc = (t + pad) // CL_CHUNK
-
-    def grouped(fill):
-        c = torch.nn.functional.pad(corners, (0, 0, 0, pad), value=fill)
-        return c.reshape(3, kc, CL_CHUNK, 3)
-
-    lo = grouped(geo.INF).amin(dim=(0, 2))
-    hi = grouped(-geo.INF).amax(dim=(0, 2))
-    return torch.cat([lo, hi], dim=1).contiguous()
 
 
 def cluster_sweep_plain(tris: TriangleTable, ro, rd, t_min: float, t_max: float):
@@ -109,17 +90,35 @@ def triangle_sweep_plain(tri, origin, ro, rd, t_min: float, t_max: float):
     return best_t, best_idx, best_t < geo.INF
 
 
+def needed_cluster_pairs(aabb, origin, ro, rd, t_min: float, t_hit):
+    """(Kc,) int64: per cluster, the rays that enter its box (``aabb``
+    rows [lo hi] in the frame of ``origin``) within [t_min, t_hit], where
+    ``t_hit`` (N,) is each ray's final winner, or t_max on a miss.  These
+    (ray, cluster) pairs are the work that any front-to-back sweep over
+    these clusters must do, whatever implements it.  The slab test is the
+    kernels' (IEEE 1/rd, NaN-propagating min/max); a NaN slab (0 * inf,
+    a ray in a face's plane) counts as entered."""
+    counts = torch.zeros((aabb.shape[0],), dtype=torch.int64, device=ro.device)
+    lo, hi = aabb[None, :, 0:3], aabb[None, :, 3:6]
+    for s in range(0, ro.shape[0], NEEDED_CHUNK):
+        ro_s = (ro[s:s + NEEDED_CHUNK] - origin)[:, None, :]
+        inv = (1.0 / rd[s:s + NEEDED_CHUNK])[:, None, :]
+        a, b = (lo - ro_s) * inv, (hi - ro_s) * inv
+        near = torch.maximum(torch.minimum(a, b).amax(dim=2),
+                             torch.full_like(a[..., 0], t_min))
+        far = torch.minimum(torch.maximum(a, b).amin(dim=2), t_hit[s:s + NEEDED_CHUNK, None])
+        counts += (~(near > far)).sum(dim=0)
+    return counts
+
+
 def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(_build.build(SOURCE)))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn = lib.triangle_sweep_launch
-        fn.argtypes = [p, i, p, p, p, i, f, f, p, p, p, p]
-        fn.restype = ctypes.c_int
-        fn = lib.cluster_sweep_launch
-        fn.argtypes = [p, i, p, i, p, p, p, i, f, f, p, p, p, p, p]
-        fn.restype = ctypes.c_int
+        for fn in (lib.triangle_sweep_launch, lib.cluster_sweep_launch):
+            fn.argtypes = [p, i, p, i, p, p, p, i, f, f, p, p, p, p, p]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -135,60 +134,12 @@ def _check(name, x, device, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def triangle_sweep_cuda(tri, origin, ro, rd, t_min: float, t_max: float):
-    """K5 on CUDA tensors; the same outputs as :func:`triangle_sweep_plain`."""
-    global LAUNCHES
+def _launch(entry: str, what: str, tri, aabb, origin, ro, rd, t_min, t_max, stats):
+    """Check the inputs of K5 or K6, launch ``entry`` and return (t, idx,
+    found); raises on a bad input or a failed launch."""
     device = ro.device
     if device.type != "cuda":
-        raise ValueError(f"K5 takes CUDA tensors, got {device}")
-    n = ro.shape[0]
-    for name, x, shape in (("ro", ro, (n, 3)), ("rd", rd, (n, 3)), ("origin", origin, (3,)),
-                           ("tri", tri, (None, TRI_COLS))):
-        _check(name, x, device, shape)
-    if n >= 2**31 or tri.shape[0] >= 2**31:
-        raise ValueError(f"K5 takes fewer than 2**31 rays and triangles, got {n}, {tri.shape[0]}")
-    if tri.data_ptr() % 16:
-        raise ValueError("tri must be 16-byte aligned")
-    t = torch.empty((n,), dtype=torch.float32, device=device)
-    idx = torch.empty((n,), dtype=torch.int32, device=device)
-    found = torch.empty((n,), dtype=torch.bool, device=device)
-    if n == 0:
-        return t, idx, found
-    fn = _library().triangle_sweep_launch
-    with torch.cuda.device(device):
-        err = fn(
-            tri.data_ptr(), tri.shape[0], origin.data_ptr(), ro.data_ptr(), rd.data_ptr(), n,
-            t_min, t_max, t.data_ptr(), idx.data_ptr(), found.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"K5 launch failed: cudaError {err}")
-    LAUNCHES += 1
-    return t, idx, found
-
-
-def triangle_sweep(tri, origin, ro, rd, t_min: float, t_max: float):
-    """The triangle sweep: the kernel for CUDA tensors, the plain version
-    for CPU tensors."""
-    if ro.device.type == "cuda":
-        return triangle_sweep_cuda(tri, origin, ro, rd, t_min, t_max)
-    if ro.device.type == "cpu":
-        return triangle_sweep_plain(tri, origin, ro, rd, t_min, t_max)
-    raise ValueError(f"the triangle sweep runs on CUDA or CPU tensors, got {ro.device}")
-
-
-def cluster_sweep_cuda(tri, aabb, origin, ro, rd, t_min: float, t_max: float, stats=None):
-    """K6 on CUDA tensors: ``tri`` the (T, 16) table of
-    :func:`pack_triangle_table`, ``aabb`` its (Kc, 6) cluster boxes
-    (:func:`pack_cluster_aabbs`).  The same outputs as
-    :func:`cluster_sweep_plain` wherever both culls are conservative.
-    ``stats``, an int32 tensor of three zeros on the card, takes the
-    (block, cluster) loads, the (warp, cluster) sweeps and the (ray,
-    cluster) pairs that the cull let through in the launch."""
-    global CL_LAUNCHES
-    device = ro.device
-    if device.type != "cuda":
-        raise ValueError(f"K6 takes CUDA tensors, got {device}")
+        raise ValueError(f"{what} takes CUDA tensors, got {device}")
     n = ro.shape[0]
     n_tri = tri.shape[0]
     kc = -(-n_tri // CL_CHUNK)
@@ -196,9 +147,9 @@ def cluster_sweep_cuda(tri, aabb, origin, ro, rd, t_min: float, t_max: float, st
                            ("tri", tri, (None, TRI_COLS)), ("aabb", aabb, (kc, 6))):
         _check(name, x, device, shape)
     if n >= 2**31 or n_tri >= 2**31:
-        raise ValueError(f"K6 takes fewer than 2**31 rays and triangles, got {n}, {n_tri}")
-    if tri.data_ptr() % 16:
-        raise ValueError("tri must be 16-byte aligned")
+        raise ValueError(f"{what} takes fewer than 2**31 rays and triangles, got {n}, {n_tri}")
+    if tri.data_ptr() % 16 or aabb.data_ptr() % 8:
+        raise ValueError("tri must be 16-byte aligned and aabb 8-byte aligned")
     if stats is not None and (stats.device != device or stats.dtype != torch.int32
                               or stats.shape != (3,)):
         raise ValueError("stats must be an int32 tensor of shape (3,) on the rays' device")
@@ -207,7 +158,7 @@ def cluster_sweep_cuda(tri, aabb, origin, ro, rd, t_min: float, t_max: float, st
     found = torch.empty((n,), dtype=torch.bool, device=device)
     if n == 0:
         return t, idx, found
-    fn = _library().cluster_sweep_launch
+    fn = getattr(_library(), entry)
     with torch.cuda.device(device):
         err = fn(
             tri.data_ptr(), n_tri, aabb.data_ptr(), kc, origin.data_ptr(), ro.data_ptr(),
@@ -216,17 +167,55 @@ def cluster_sweep_cuda(tri, aabb, origin, ro, rd, t_min: float, t_max: float, st
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"K6 launch failed: cudaError {err}")
-    CL_LAUNCHES += 1
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")
     return t, idx, found
+
+
+def triangle_sweep_cuda(tri, aabb, origin, ro, rd, t_min: float, t_max: float, stats=None):
+    """K5 on CUDA tensors: ``tri`` the (T, 16) table of
+    :func:`pack_triangle_table` (T <= intersect.SWEEP_MAX_TRIS), ``aabb``
+    its (Kc, 6) cluster boxes (:func:`pack_cluster_aabbs`).  The same
+    outputs as :func:`triangle_sweep_plain`, which has no cull.
+    ``stats``, an int32 tensor of three zeros on the card, takes the
+    clusters the warps listed, the (warp, cluster) sweeps and the (ray,
+    cluster) pairs swept by a lane that could still hit the cluster."""
+    global LAUNCHES
+    out = _launch("triangle_sweep_launch", "K5", tri, aabb, origin, ro, rd, t_min, t_max, stats)
+    if ro.shape[0]:
+        LAUNCHES += 1
+    return out
+
+
+def cluster_sweep_cuda(tri, aabb, origin, ro, rd, t_min: float, t_max: float, stats=None):
+    """K6 on CUDA tensors, with K5's arguments and ``stats``; any number
+    of clusters.  The same outputs as :func:`cluster_sweep_plain` and
+    :func:`triangle_sweep_plain` wherever the plain version's cull is
+    conservative."""
+    global CL_LAUNCHES
+    out = _launch("cluster_sweep_launch", "K6", tri, aabb, origin, ro, rd, t_min, t_max, stats)
+    if ro.shape[0]:
+        CL_LAUNCHES += 1
+    return out
+
+
+
+def triangle_sweep(tris: TriangleTable, ro, rd, t_min: float, t_max: float):
+    """The dense triangle sweep of a table with sweep constants: the
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if ro.device.type == "cuda":
+        return triangle_sweep_cuda(tris.sw_table, tris.sw_aabb, tris.sw_origin, ro, rd, t_min,
+                                   t_max)
+    if ro.device.type == "cpu":
+        return triangle_sweep_plain(tris.sw_table, tris.sw_origin, ro, rd, t_min, t_max)
+    raise ValueError(f"the triangle sweep runs on CUDA or CPU tensors, got {ro.device}")
 
 
 def cluster_sweep(tris: TriangleTable, ro, rd, t_min: float, t_max: float):
     """The cluster sweep of a table with cluster tables: the kernel for
     CUDA tensors, the plain version for CPU tensors."""
     if ro.device.type == "cuda":
-        return cluster_sweep_cuda(pack_triangle_table(tris), pack_cluster_aabbs(tris),
-                                  tris.sw_origin, ro, rd, t_min, t_max)
+        return cluster_sweep_cuda(tris.sw_table, tris.sw_aabb, tris.sw_origin, ro, rd, t_min,
+                                  t_max)
     if ro.device.type == "cpu":
         return cluster_sweep_plain(tris, ro, rd, t_min, t_max)
     raise ValueError(f"the cluster sweep runs on CUDA or CPU tensors, got {ro.device}")

@@ -287,9 +287,8 @@ def intersect_scene(scene: SceneData, ro, rd, t_min: float, t_max: float, med_u=
     strategy = mesh_strategy(scene)
     tr = scene.triangles
     if strategy == "sweep":
-        consider_per_ray(*cuda_triangles.triangle_sweep(
-            cuda_triangles.pack_triangle_table(tr), tr.sw_origin, ro_d, rd_d, t_min, t_max,
-        ), KIND_TRIANGLE)
+        consider_per_ray(*cuda_triangles.triangle_sweep(tr, ro_d, rd_d, t_min, t_max),
+                         KIND_TRIANGLE)
     elif strategy == "cluster":
         consider_per_ray(*cuda_triangles.cluster_sweep(tr, ro_d, rd_d, t_min, t_max),
                          KIND_TRIANGLE)

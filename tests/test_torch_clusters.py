@@ -147,14 +147,20 @@ def test_c6_tables_equal_jax(c6):
 
 
 def test_cluster_aabbs_match_pallas_packing(c6):
-    """K6's (Kc, 6) boxes of 128 triangles equal the Pallas kernel's
-    chunk AABBs at cl_chunk 128 (which pads the table to a multiple of
-    1024 with empty boxes)."""
+    """K6's (Kc, 6) boxes of 128 triangles are the Pallas kernel's chunk
+    AABBs at cl_chunk 128 (which pads the table to a multiple of 1024
+    with empty boxes), each grown outward by AABB_PAD_ULPS float32 eps x
+    the box's reach (its largest |coordinate|), bit for bit."""
+    from ray_tracing_tpu_torch.models.scene import AABB_PAD_ULPS
+
     scene, _, _, jscene, _ = c6
     aabb = ct.pack_cluster_aabbs(scene.triangles).numpy()
     jaabb = np.asarray(pack_chunk_aabbs(jscene.triangles, chunk=ct.CL_CHUNK)).T
     assert aabb.shape == (621, 6)
-    np.testing.assert_array_equal(aabb, jaabb[:621])
+    lo, hi = jaabb[:621, 0:3], jaabb[:621, 3:6]
+    reach = np.maximum(np.abs(lo), np.abs(hi)).max(axis=1, keepdims=True)
+    margin = np.float32(AABB_PAD_ULPS * EPS32) * reach
+    np.testing.assert_array_equal(aabb, np.concatenate([lo - margin, hi + margin], axis=1))
     assert np.all(np.isinf(jaabb[621:]))
 
 

@@ -204,40 +204,134 @@ def test_transformed_kernel_matches_plain_on_card(cuda, scene_json):
         assert int(((got[1] == 2) & (got[2] < 6)).sum()) > 0
 
 
+def _assert_same_winners(got, want):
+    """found and idx equal, t bit-equal on hits."""
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(got[1][got[2]], want[1][want[2]])
+    assert torch.equal(got[0][got[2]], want[0][want[2]])
+
+
+def _k5(tr, ro, rd, t_max=np.inf):
+    before = ct.LAUNCHES
+    got = ct.triangle_sweep_cuda(tr.sw_table, tr.sw_aabb, tr.sw_origin, ro, rd, 1e-3, t_max)
+    torch.cuda.synchronize()
+    assert ct.LAUNCHES == before + 1
+    return got
+
+
+def _secondary(tr, ro, rd):
+    """chip_smoke.secondary_rays from the mesh hits of (ro, rd)."""
+    from chip_smoke import secondary_rays
+
+    hit = ct.triangle_sweep_plain(tr.sw_table, tr.sw_origin, ro, rd, 1e-3, np.inf)
+    return secondary_rays(tr, ro, rd, *hit, 6007, 1)
+
+
 def test_triangle_kernel_matches_plain_on_card(cuda, scene_json):
-    """K5 against triangle_sweep_plain on scene.json's 4,969 triangles:
-    found and idx equal, t equal or within rtol 1e-6, camera rays and
-    rays aimed at the bunny (with a ragged tail)."""
+    """K5 against triangle_sweep_plain (dense, no cull) on scene.json's
+    4,969 triangles: found and idx equal, t bit-equal on hits, camera
+    rays, rays aimed at the bunny (with a ragged tail) and secondary rays
+    from the camera rays' mesh hits."""
     tr = scene_json.scene.triangles.to(cuda)
-    tri = ct.pack_triangle_table(tr)
-    sets = [_ray_sets(scene_json, cuda)[0], _bunny_rays(5003, 1, cuda)]
-    for ro, rd in sets:
-        before = ct.LAUNCHES
-        got = ct.triangle_sweep_cuda(tri, tr.sw_origin, ro, rd, 1e-3, np.inf)
-        torch.cuda.synchronize()
-        assert ct.LAUNCHES == before + 1
-        want = ct.triangle_sweep_plain(tri, tr.sw_origin, ro, rd, 1e-3, np.inf)
-        assert torch.equal(got[2], want[2])
-        assert torch.equal(got[1][got[2]], want[1][want[2]])
-        torch.testing.assert_close(got[0][got[2]], want[0][want[2]], rtol=1e-6, atol=0.0)
+    cam = _ray_sets(scene_json, cuda)[0]
+    for ro, rd in (cam, _bunny_rays(5003, 1, cuda), _secondary(tr, *cam)):
+        got = _k5(tr, ro, rd)
+        _assert_same_winners(got, ct.triangle_sweep_plain(tr.sw_table, tr.sw_origin, ro, rd,
+                                                          1e-3, np.inf))
         assert got[2].float().mean() > 0.01
+
+
+def _tie_table(tr):
+    """scene.json's triangles after one cluster of 128 copies of bunny
+    triangle ``j``: every hit on it ties between indices 0..127 and
+    128 + j, and the original's larger cluster box is entered first, so
+    the front-to-back order meets the lowest index last."""
+    import dataclasses
+
+    from ray_tracing_tpu_torch.models.scene import (
+        pack_sweep_kernel_tables,
+        pack_triangle_clusters,
+        pack_triangle_sweep,
+    )
+
+    j = 2000
+    fields = ("v0", "e12", "e13", "n0", "n1", "n2", "uv0", "uv1", "uv2", "material")
+    table = dataclasses.replace(tr, **{f: torch.cat([getattr(tr, f)[j:j + 1].expand(
+        128, *getattr(tr, f).shape[1:]), getattr(tr, f)]) for f in fields})
+    plain = dataclasses.replace(table, **{f.name: None for f in dataclasses.fields(table)
+                                          if f.name.startswith(("sw_", "cl_"))})
+    return pack_triangle_clusters(pack_sweep_kernel_tables(pack_triangle_sweep(plain))), j
+
+
+def test_sweep_kernels_break_out_of_order_ties_by_index(cuda, scene_json):
+    """K5 and K6 against the dense plain version (and K6 against
+    cluster_sweep_plain) on a table whose hits tie across two clusters:
+    the lowest index wins, whatever order the clusters are visited in."""
+    tr, j = _tie_table(scene_json.scene.triangles)
+    tr = tr.to(cuda)
+    r = np.random.RandomState(5)
+    target = (tr.v0[0] + (tr.e12[0] + tr.e13[0]) / 3.0).cpu().numpy()
+    ro = r.uniform(20.0, 535.0, (3001, 3)).astype(np.float32)
+    rd = target + r.normal(size=(3001, 3)).astype(np.float32) * 0.2 - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    ro, rd = torch.from_numpy(ro).to(cuda), torch.from_numpy(rd.astype(np.float32)).to(cuda)
+    want = ct.triangle_sweep_plain(tr.sw_table, tr.sw_origin, ro, rd, 1e-3, np.inf)
+    on_copy = want[2] & ((want[1] < 128) | (want[1] == 128 + j))
+    assert int(on_copy.sum()) > 100 and bool((want[1][on_copy] == 0).all())  # ties won by 0
+    _assert_same_winners(_k5(tr, ro, rd), want)
+    got = ct.cluster_sweep_cuda(tr.sw_table, tr.sw_aabb, tr.sw_origin, ro, rd, 1e-3, np.inf)
+    _assert_same_winners(got, want)
+    _assert_same_winners(got, ct.cluster_sweep_plain(tr, ro, rd, 1e-3, np.inf))
+
+
+def test_sweep_kernels_on_axis_parallel_rays_and_finite_t_max(cuda, scene_json, c6):
+    """Axis-parallel rays (1/rd = inf on two axes) through scene.json's
+    bunny and C6's grid, and a finite t_max that cuts some hits: K5 and
+    K6 equal their plain versions."""
+    r = np.random.RandomState(7)
+    for tr, lo, hi, k6 in ((scene_json.scene.triangles, [250, 30, 140], [360, 190, 270], False),
+                           (c6[0].triangles, [-0.6, 0.03, -0.6], [0.6, 0.2, 0.6], True)):
+        tr = tr.to(cuda)
+        n = 4099
+        ro = r.uniform(lo, hi, (n, 3)).astype(np.float32)
+        axis = r.randint(0, 3, n)
+        rd = np.zeros((n, 3), np.float32)
+        rd[np.arange(n), axis] = np.where(r.rand(n) < 0.5, -1.0, 1.0)
+        ro[np.arange(n), axis] = np.where(rd[np.arange(n), axis] > 0, np.asarray(lo)[axis] - 1.0,
+                                          np.asarray(hi)[axis] + 1.0)
+        ro, rd = torch.from_numpy(ro).to(cuda), torch.from_numpy(rd).to(cuda)
+        full = ct.triangle_sweep_plain(tr.sw_table, tr.sw_origin, ro, rd, 1e-3, np.inf)
+        assert full[2].float().mean() > 0.05
+        t_max = float(full[0][full[2]].median())
+        for limit in (np.inf, t_max):
+            want = ct.triangle_sweep_plain(tr.sw_table, tr.sw_origin, ro, rd, 1e-3, limit)
+            if k6:
+                got = ct.cluster_sweep_cuda(tr.sw_table, tr.sw_aabb, tr.sw_origin, ro, rd, 1e-3,
+                                            limit)
+                _assert_same_winners(got, ct.cluster_sweep_plain(tr, ro, rd, 1e-3, limit))
+            else:
+                got = _k5(tr, ro, rd, limit)
+            _assert_same_winners(got, want)
+        assert int(want[2].sum()) < int(full[2].sum())
 
 
 def test_triangle_kernel_refuses_bad_inputs(cuda, scene_json):
     tr = scene_json.scene.triangles.to(cuda)
-    tri = ct.pack_triangle_table(tr)
+    tri, aabb = tr.sw_table, tr.sw_aabb
     ro, rd = _bunny_rays(100, 2, cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        ct.triangle_sweep_cuda(tri, tr.sw_origin, ro.t().contiguous().t(), rd, 1e-3, np.inf)
+        ct.triangle_sweep_cuda(tri, aabb, tr.sw_origin, ro.t().contiguous().t(), rd, 1e-3, np.inf)
     with pytest.raises(ValueError, match="is on"):
-        ct.triangle_sweep_cuda(tri.cpu(), tr.sw_origin, ro, rd, 1e-3, np.inf)
+        ct.triangle_sweep_cuda(tri.cpu(), aabb, tr.sw_origin, ro, rd, 1e-3, np.inf)
     with pytest.raises(ValueError, match="shape"):
-        ct.triangle_sweep_cuda(tri[:, :15].contiguous(), tr.sw_origin, ro, rd, 1e-3, np.inf)
+        ct.triangle_sweep_cuda(tri[:, :15].contiguous(), aabb, tr.sw_origin, ro, rd, 1e-3, np.inf)
+    with pytest.raises(ValueError, match="shape"):
+        ct.triangle_sweep_cuda(tri, aabb[1:].contiguous(), tr.sw_origin, ro, rd, 1e-3, np.inf)
     with pytest.raises(TypeError, match="float32"):
-        ct.triangle_sweep_cuda(tri, tr.sw_origin, ro.double(), rd, 1e-3, np.inf)
+        ct.triangle_sweep_cuda(tri, aabb, tr.sw_origin, ro.double(), rd, 1e-3, np.inf)
     before = ct.LAUNCHES
     empty = torch.zeros((0, 3), device=cuda)
-    out = ct.triangle_sweep_cuda(tri, tr.sw_origin, empty, empty, 1e-3, np.inf)
+    out = ct.triangle_sweep_cuda(tri, aabb, tr.sw_origin, empty, empty, 1e-3, np.inf)
     assert all(x.numel() == 0 for x in out) and ct.LAUNCHES == before
 
 
@@ -294,46 +388,54 @@ def _copies_rays(n, seed, device):
 
 
 def _check_cluster_kernel(tr, ro, rd):
-    tri, aabb = ct.pack_triangle_table(tr), ct.pack_cluster_aabbs(tr)
+    """K6 against cluster_sweep_plain, found and idx equal, t bit-equal on
+    hits; the stats: some clusters listed, no more swept than listed, no
+    more pairs than 32 per sweep."""
     before = (ct.LAUNCHES, ct.CL_LAUNCHES)
     stats = torch.zeros(3, dtype=torch.int32, device=ro.device)
-    got = ct.cluster_sweep_cuda(tri, aabb, tr.sw_origin, ro, rd, 1e-3, np.inf, stats)
+    got = ct.cluster_sweep_cuda(tr.sw_table, tr.sw_aabb, tr.sw_origin, ro, rd, 1e-3, np.inf,
+                                stats)
     torch.cuda.synchronize()
     assert (ct.LAUNCHES, ct.CL_LAUNCHES) == (before[0], before[1] + 1)
-    want = ct.cluster_sweep_plain(tr, ro, rd, 1e-3, np.inf)
-    assert torch.equal(got[2], want[2])
-    assert torch.equal(got[1][got[2]], want[1][want[2]])
-    torch.testing.assert_close(got[0][got[2]], want[0][want[2]], rtol=1e-6, atol=0.0)
-    blocks = -(-ro.shape[0] // ct.CL_THREADS)
-    assert 0 < int(stats[0]) < blocks * aabb.shape[0], "the cull skips some clusters"
-    assert int(stats[2]) <= ct.CL_THREADS * int(stats[0]) and int(stats[1]) <= 4 * int(stats[0])
+    _assert_same_winners(got, ct.cluster_sweep_plain(tr, ro, rd, 1e-3, np.inf))
+    warps = -(-ro.shape[0] // ct.WARP_RAYS)
+    listed, sweeps, pairs = (int(x) for x in stats)
+    assert 0 < listed < warps * tr.sw_aabb.shape[0], "the cull skips some clusters"
+    assert 0 < sweeps <= listed and sweeps <= pairs <= ct.WARP_RAYS * sweeps
     return got
 
 
 def test_cluster_kernel_matches_plain_on_card(cuda, c6):
     """K6 against cluster_sweep_plain on C6 (79,488 triangles, 621
-    clusters of 128): found and idx equal, t within rtol 1e-6, on camera
-    rays and rays aimed at the grid (with a ragged tail)."""
+    clusters of 128): found and idx equal, t bit-equal on hits, on camera
+    rays, rays aimed at the grid (with a ragged tail) and secondary rays
+    from the camera rays' mesh hits; on the secondary rays also against
+    the dense plain version."""
     scene, cam, _ = c6
     tr = scene.triangles.to(cuda)
     ro, rd, _, _ = camera_rays(Camera.build(cam, 1.0).to(cuda), rng.key(3), 128, 128)
-    for rays in ((ro.contiguous(), rd.contiguous()), _grid_rays(5003, 1, cuda)):
+    ro, rd = ro.contiguous(), rd.contiguous()
+    secondary = _secondary(tr, ro, rd)
+    for rays in ((ro, rd), _grid_rays(5003, 1, cuda), secondary):
         found = _check_cluster_kernel(tr, *rays)[2]
         assert found.float().mean() > 0.05
+    _assert_same_winners(_check_cluster_kernel(tr, *secondary),
+                         ct.triangle_sweep_plain(tr.sw_table, tr.sw_origin, *secondary, 1e-3,
+                                                 np.inf))
 
 
 def test_cluster_kernel_past_1024_clusters(cuda):
     """K7's case, the same kernel: 27 bunnies, 134,136 triangles, 1,048
-    clusters of 128."""
+    clusters of 128 (three pages of the per-warp list)."""
     tr = scenes.bunny_copies(27).triangles.to(cuda)
-    assert ct.pack_cluster_aabbs(tr).shape[0] > 1024
+    assert tr.sw_aabb.shape[0] > 1024
     found = _check_cluster_kernel(tr, *_copies_rays(4099, 2, cuda))[2]
     assert found.float().mean() > 0.05
 
 
 def test_cluster_kernel_refuses_bad_inputs(cuda, c6):
     tr = c6[0].triangles.to(cuda)
-    tri, aabb = ct.pack_triangle_table(tr), ct.pack_cluster_aabbs(tr)
+    tri, aabb = tr.sw_table, tr.sw_aabb
     ro, rd = _grid_rays(100, 2, cuda)
     with pytest.raises(ValueError, match="contiguous"):
         ct.cluster_sweep_cuda(tri, aabb, tr.sw_origin, ro.t().contiguous().t(), rd, 1e-3, np.inf)

@@ -160,13 +160,14 @@ def test_sweep_on_cpu_takes_the_plain_version(scenes):
     tri = ct.pack_triangle_table(ours.triangles)
     ro, rd = (torch.from_numpy(x) for x in _rays(300, 4))
     before = ct.LAUNCHES
-    got = ct.triangle_sweep(tri, ours.triangles.sw_origin, ro, rd, 1e-3, np.inf)
+    got = ct.triangle_sweep(ours.triangles, ro, rd, 1e-3, np.inf)
     want = ct.triangle_sweep_plain(tri, ours.triangles.sw_origin, ro, rd, 1e-3, np.inf)
     assert ct.LAUNCHES == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="CUDA"):
-        ct.triangle_sweep_cuda(tri, ours.triangles.sw_origin, ro, rd, 1e-3, np.inf)
+        ct.triangle_sweep_cuda(tri, ct.pack_cluster_aabbs(ours.triangles),
+                               ours.triangles.sw_origin, ro, rd, 1e-3, np.inf)
 
 
 def test_mesh_strategy_is_the_sweep_or_refuses(scenes):
