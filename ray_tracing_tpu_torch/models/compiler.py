@@ -54,6 +54,7 @@ from ray_tracing_tpu_torch.models.scene import (
     pack_sweep_kernel_tables,
     pack_triangle_clusters,
     pack_triangle_sweep,
+    with_phase_a_tables,
 )
 from ray_tracing_tpu_torch.render.renderer import RendererParam
 
@@ -553,7 +554,7 @@ class SceneBuilder:
             index=tuple(l[1] for l in self._lights),
             transform=tuple(l[2] for l in self._lights),
         )
-        return SceneData(
+        return with_phase_a_tables(SceneData(
             spheres=spheres,
             triangles=triangles,
             rects=rects,
@@ -569,7 +570,7 @@ class SceneBuilder:
             n_rects=nr,
             n_lights=len(self._lights),
             n_medium=len(self._media),
-        )
+        ))
 
 
 # ---------------------------------------------------------------------- #

@@ -22,7 +22,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ray_tracing_tpu_torch.ops.geometry import triangle_sweep_tables
+from ray_tracing_tpu_torch.ops.geometry import rect_basis, triangle_sweep_tables
 
 # material types (reference src/json.rs:198-207 AnyMaterial, kebab-case)
 MAT_LAMBERTIAN = 0
@@ -354,6 +354,116 @@ class LightTable(_Table):
         return len(self.kind)
 
 
+SPHERE_COLS = 4  # [cx cy cz r]
+RECT_COLS = 14  # [ua(3) ub(3) uk(3) a0 a1 b0 b1 k]
+TF_COLS = 12  # [inv(9) inv_t(3)] after the base columns of a transformed table
+MOTION_COLS = 3  # [vx vy vz] after the base columns of a moving sphere table
+META_COLS = 2  # [slot, row] as int32 bits after a phase-A kernel row
+
+
+@dataclasses.dataclass(frozen=True)
+class PhaseATables(_Table):
+    """Phase A's sphere and rect tables in the layout of the kernels K1,
+    K3 and K4 (csrc/intersect.cu) and of ops/cuda_intersect.py:
+    phase_a_plain, derived from :func:`pack_primitive_tables` by
+    :func:`pack_phase_a_tables`.
+
+    A row is its table's base columns ([cx cy cz r], moving [cx cy cz r
+    vx vy vz], or the rect's 14) followed by two int32 words stored as
+    float32 bits: its transform slot (a row of ``slots``) and its row in
+    the scene's own table.  A transformed table's rows are ordered by slot
+    (ties in row order), so one object ray per ray and slot serves a run
+    of rows; ``slots`` holds each distinct [inv(9) inv_t(3)] of the
+    transformed tables once.  An untransformed table keeps its row order
+    and slot 0, which nothing reads."""
+
+    sph: torch.Tensor  # (S, 4 or 7 + META_COLS) f32
+    rect: torch.Tensor  # (R, RECT_COLS + META_COLS) f32
+    slots: torch.Tensor  # (X, TF_COLS) f32; X = 0 without transforms
+    sph_tf: bool = False
+    rect_tf: bool = False
+    sph_motion: bool = False
+
+    @property
+    def transformed(self) -> bool:
+        return self.sph_tf or self.rect_tf
+
+
+def pack_primitive_tables(scene: "SceneData"):
+    """Spheres (S, 4) = [cx cy cz r] and rects (R, 14) = [ua(3) ub(3)
+    uk(3) a0 a1 b0 b1 k], float32 and contiguous, on the scene's device
+    (the counterpart of pallas_intersect.py:pack_primitive_tables).  A
+    table with instancing transforms gets [inv(9) inv_t(3)] on every
+    row: (S, 16), (R, 26); a moving sphere table gets [vx vy vz]: (S, 7)."""
+    sp, rc = scene.spheres, scene.rects
+    tf = scene.transforms
+    sph = torch.cat([sp.center, sp.radius[:, None]], dim=1)
+    if sp.has_transforms and sp.has_motion:
+        raise ValueError("moving spheres never share a table with transformed spheres")
+    if sp.has_transforms:
+        slot = sp.transform.long()
+        sph = torch.cat([sph, tf.inv[slot].reshape(-1, 9), tf.inv_t[slot]], dim=1)
+    elif sp.has_motion:
+        sph = torch.cat([sph, sp.vel], dim=1)
+    ua, ub, uk = rect_basis(rc.axis)
+    bounds = torch.stack([rc.a0, rc.a1, rc.b0, rc.b1, rc.k], dim=1)
+    rect = torch.cat([ua, ub, uk, bounds], dim=1)
+    if rc.has_transforms:
+        slot = rc.transform.long()
+        rect = torch.cat([rect, tf.inv[slot].reshape(-1, 9), tf.inv_t[slot]], dim=1)
+    return sph.contiguous(), rect.contiguous()
+
+
+def pack_phase_a_tables(sph: torch.Tensor, rect: torch.Tensor) -> PhaseATables:
+    """The kernels' layout (:class:`PhaseATables`) of the per-row tables
+    of :func:`pack_primitive_tables`, on their device.  Transforms are
+    told apart by their bits, so two rows share a slot exactly when their
+    object rays are the same bits."""
+    sph_motion = sph.shape[1] == SPHERE_COLS + MOTION_COLS
+    sph_tf = sph.shape[1] == SPHERE_COLS + TF_COLS
+    rect_tf = rect.shape[1] == RECT_COLS + TF_COLS
+    if sph.shape[1] not in (SPHERE_COLS, SPHERE_COLS + TF_COLS, SPHERE_COLS + MOTION_COLS) \
+            or rect.shape[1] not in (RECT_COLS, RECT_COLS + TF_COLS):
+        raise ValueError(f"phase-A tables have (S, 4, 16 or 7) and (R, 14 or 26) columns, got "
+                         f"{tuple(sph.shape)} and {tuple(rect.shape)}")
+    tables = ((sph, SPHERE_COLS, sph_tf), (rect, RECT_COLS, rect_tf))
+    tf_rows = [t[:, cols:].contiguous().view(torch.int32) for t, cols, tf in tables if tf]
+    slots = torch.zeros((0, TF_COLS), dtype=torch.float32, device=sph.device)
+    slot_of = [None, None]
+    if tf_rows:
+        bits, inverse = torch.unique(torch.cat(tf_rows), dim=0, return_inverse=True)
+        slots = bits.view(torch.float32)
+        inverse = inverse.to(torch.int32)
+        if sph_tf:
+            slot_of[0], inverse = inverse[:sph.shape[0]], inverse[sph.shape[0]:]
+        if rect_tf:
+            slot_of[1] = inverse
+
+    def grouped(table, cols, slot):
+        n = table.shape[0]
+        row = torch.arange(n, dtype=torch.int32, device=table.device)
+        base = table if slot is None else table[:, :cols]
+        if slot is None:
+            slot = torch.zeros_like(row)
+        else:
+            order = torch.argsort(slot, stable=True)
+            base, slot, row = base[order], slot[order], row[order]
+        meta = torch.stack([slot, row], dim=1).contiguous().view(torch.float32)
+        return torch.cat([base, meta], dim=1).contiguous()
+
+    return PhaseATables(
+        sph=grouped(sph, SPHERE_COLS, slot_of[0]), rect=grouped(rect, RECT_COLS, slot_of[1]),
+        slots=slots.contiguous(), sph_tf=sph_tf, rect_tf=rect_tf, sph_motion=sph_motion,
+    )
+
+
+def with_phase_a_tables(scene: "SceneData") -> "SceneData":
+    """``scene`` with its phase-A tables packed (once per scene; ``.to``
+    moves them with the rest)."""
+    return dataclasses.replace(
+        scene, phase_a=pack_phase_a_tables(*pack_primitive_tables(scene)))
+
+
 @dataclasses.dataclass(frozen=True)
 class SceneData(_Table):
     """The whole compiled scene."""
@@ -377,6 +487,9 @@ class SceneData(_Table):
     # (models/camera.py:stamp_shutter); each ray's time is drawn per ray
     # id from it (ops/rng.py:ray_time)
     shutter: Optional[torch.Tensor] = None  # (2,) f32
+    # phase A's sphere and rect tables in the kernels' layout, packed once
+    # per scene by with_phase_a_tables (the compiler and scene_from_numpy)
+    phase_a: Optional[PhaseATables] = None
 
     @property
     def has_lights(self) -> bool:
@@ -434,7 +547,7 @@ def scene_from_numpy(tree) -> SceneData:
     triangles = _tensors(TriangleTable, tree.triangles)
     if triangles.has_sweep:
         triangles = pack_sweep_kernel_tables(triangles)
-    return SceneData(
+    return with_phase_a_tables(SceneData(
         spheres=_tensors(SphereTable, tree.spheres, vel=torch.from_numpy(
             np.zeros((int(tree.n_spheres), 3), np.float32) if vel is None else np.array(vel))),
         triangles=triangles,
@@ -463,7 +576,7 @@ def scene_from_numpy(tree) -> SceneData:
         n_lights=int(tree.n_lights),
         n_medium=int(tree.n_medium),
         shutter=None if tree.shutter is None else torch.from_numpy(np.array(tree.shutter)),
-    )
+    ))
 
 
 def identity_transform_table(extra=None) -> TransformTable:

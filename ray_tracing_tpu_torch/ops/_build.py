@@ -1,6 +1,6 @@
 """Building the port's CUDA kernels: ``nvcc`` for ``sm_90a`` at first
 use, one shared library with a plain C interface per source, loaded
-with ``ctypes``.
+with ``ctypes``; and :func:`on_device`, which the launch wrappers share.
 
 Each library lands in ``build/kernels/`` beside the package, named by
 its source's stem and a hash of the source and the flags, so an edited
@@ -10,10 +10,13 @@ build raises.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -55,3 +58,12 @@ def build(source: Path) -> Path:
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
+
+
+def on_device(device: torch.device):
+    """A context that makes CUDA ``device`` current for a launch, or
+    nothing when it already is (entering torch.cuda.device costs more
+    host time than a short kernel)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

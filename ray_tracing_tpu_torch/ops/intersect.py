@@ -64,48 +64,6 @@ class Hit:
     index: torch.Tensor  # (N,) i32 index within the winner's type table
 
 
-def _object_grid(table, cols: int, ro, rd, t_min, t_max):
-    """Rays against every row of a packed table, in each row's object
-    space when the table carries [inv(9) inv_t(3)] after its ``cols``
-    base columns: (ro, rd) as (N, P, 3) grids, nrm (N, P) or None, and
-    the t window scaled into object space."""
-    ro_n, rd_n = ro[:, None, :], rd[:, None, :]
-    if table.shape[1] == cols:
-        return ro_n, rd_n, None, t_min, t_max
-    inv = table[:, cols:cols + 9].reshape(-1, 3, 3)
-    ro_o, rd_o, nrm = geo.transform_ray(inv, table[:, cols + 9:cols + 12], ro_n, rd_n)
-    return ro_o, rd_o, nrm, t_min * nrm, t_max * nrm
-
-
-def _sphere_phase_a(sph, ro, rd, t_min, t_max, t_ray=None):
-    """(N, S) candidate grid of world (t, mask) against a packed sphere
-    table: (S, 4) [cx cy cz r], (S, 16) with [inv(9) inv_t(3)], or a
-    moving table (S, 7) with [vx vy vz], tested at each ray's centre
-    c + t_ray v (at time 0 when ``t_ray`` is None)."""
-    if sph.shape[1] == 7:
-        if t_ray is None:
-            t_ray = torch.zeros((ro.shape[0],), dtype=torch.float32, device=ro.device)
-        center = sph[None, :, 0:3] + t_ray[:, None, None] * sph[None, :, 4:7]
-        return geo.sphere_t(ro[:, None, :], rd[:, None, :], center, sph[:, 3], t_min, t_max)
-    ro_o, rd_o, nrm, lo, hi = _object_grid(sph, 4, ro, rd, t_min, t_max)
-    t, mask = geo.sphere_t(ro_o, rd_o, sph[:, 0:3], sph[:, 3], lo, hi)
-    return (t if nrm is None else t / nrm), mask
-
-
-def _rect_phase_a(rect, ro, rd, t_min, t_max):
-    """(N, R) candidate grid of world (t, mask) against a packed rect
-    table: (R, 14) [ua ub uk a0 a1 b0 b1 k], or (R, 26) with
-    [inv(9) inv_t(3)]."""
-    ro_o, rd_o, nrm, lo, hi = _object_grid(rect, 14, ro, rd, t_min, t_max)
-    t, mask, _, _ = geo.rect_t(
-        ro_o, rd_o,
-        rect[:, 0:3], rect[:, 3:6], rect[:, 6:9],
-        rect[:, 9], rect[:, 10], rect[:, 11], rect[:, 12], rect[:, 13],
-        lo, hi,
-    )
-    return (t if nrm is None else t / nrm), mask
-
-
 def _gathered_object_ray(scene: SceneData, slots, ro, rd, t_min, t_max):
     """One transform slot per ray: (ro_obj, rd_obj, t_min_obj, t_max_obj,
     fwd, fwd_t)."""
@@ -266,16 +224,18 @@ def intersect_scene(scene: SceneData, ro, rd, t_min: float, t_max: float, med_u=
     ``med_u`` (N, n_medium) uniforms for the constant media's free
     flights (None when the scene has none); ``t_ray`` (N,) shutter times
     for moving spheres (None for a scene without them)."""
-    from ray_tracing_tpu_torch.ops.cuda_intersect import pack_primitive_tables, phase_a
+    from ray_tracing_tpu_torch.ops.cuda_intersect import phase_a
 
+    if scene.phase_a is None:
+        raise ValueError("the scene has no phase-A tables: build it with SceneBuilder or "
+                         "scene_from_numpy, or attach them with models.scene.with_phase_a_tables")
     n = ro.shape[0]
     ro_d, rd_d = ro.detach().contiguous(), rd.detach().contiguous()
     if not scene.has_motion:
         t_ray = None
     elif t_ray is not None:
         t_ray = t_ray.detach().contiguous()
-    sph, rect = pack_primitive_tables(scene)
-    best_t, best_kind, best_idx = phase_a(sph, rect, ro_d, rd_d, t_min, t_max, t_ray)
+    best_t, best_kind, best_idx = phase_a(scene.phase_a, ro_d, rd_d, t_min, t_max, t_ray)
 
     def consider_per_ray(t, idx, found, kind):
         nonlocal best_t, best_kind, best_idx

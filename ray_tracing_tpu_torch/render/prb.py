@@ -21,7 +21,7 @@ Gradients cover the solid colors (``textures.color``), the atlas texels
 (``textures.images``) and the metal albedo (``materials.albedo``).  The
 accumulators are plain tables updated in place: ``index_add_`` for the
 small color and material tables, kernel K2 (ops/cuda_scatter.py) for
-the atlas.  The fuzz and IR gradients come from forward-mode tangents
+the atlas, deterministic on the card.  The fuzz and IR gradients come from forward-mode tangents
 (render/prb_scalar.py).
 """
 
@@ -76,10 +76,11 @@ def _one_hot_add(gacc, leaf, contrib, mask):
     return gacc.index_add_(0, leaf.long(), torch.where(mask[:, None], contrib, 0.0))
 
 
-def _gimg_add(gimg, texel, contrib, mask):
-    """The (P, 3) atlas-gradient table += the masked scatter of ``contrib``
-    (N, 3) at flat texel ids: kernel K2 on the card."""
-    return scatter_add(gimg, texel, contrib, mask)
+def _gimg_add(gimg, segments):
+    """The (P, 3) atlas-gradient table += the masked scatter of each
+    ``(texel, contrib (N, 3), mask)`` segment at flat texel ids, the rows
+    in order: kernel K2 on the card, one call for all the segments."""
+    return scatter_add(gimg, segments)
 
 
 def _zero_grads(scene: SceneData):

@@ -147,18 +147,17 @@ def _flat_rows(leaf, texel, mat, flags, c, rad_after, g_s, tot_s):
     return leaf.reshape(-1), texel.reshape(-1), mat.reshape(-1), flags.reshape(-1), contrib
 
 
-def _accum_rows(scene: SceneData, gacc, leaf, texel, mat, flags, c, rad_after,
-                g_s, tot_s, has_images: bool):
-    """One stage's tape block -> the three accumulators, in place (the
-    same masks as the JAX package's replay), one call per table."""
-    gcol, gimg, gmet = gacc
+def _accum_rows(gacc, leaf, texel, mat, flags, c, rad_after, g_s, tot_s):
+    """One stage's tape block -> the color and metal accumulators, in
+    place (the same masks as the JAX package's replay), one call per
+    table; returns the stage's atlas rows ``(texel, contrib, mask)`` for
+    the tile's one scatter into the image gradient."""
+    gcol, _, gmet = gacc
     leaf, texel, mat, flags, contrib = _flat_rows(leaf, texel, mat, flags, c, rad_after,
                                                   g_s, tot_s)
     _one_hot_add(gcol, leaf, contrib, (flags & F_SOLID) != 0)
-    if has_images:
-        _gimg_add(gimg, texel, contrib, (flags & F_IMAGE) != 0)
     _one_hot_add(gmet, mat, contrib, (flags & F_METAL) != 0)
-    return gcol, gimg, gmet
+    return texel, contrib, (flags & F_IMAGE) != 0
 
 
 def stage_blocks(tape: PrbTape, rad_total, g):
@@ -180,10 +179,12 @@ def stage_blocks(tape: PrbTape, rad_total, g):
 @torch.no_grad()
 def tape_sweep(scene: SceneData, tape: PrbTape, rad_total, g):
     """Accumulate (gcol (T, 3), gimg (P, 3), gmet (M, 3)) from the tape:
-    no traversal, one accumulation per table and stage over all of the
-    stage's bounces.  ``rad_total`` and ``g`` are in input-row order."""
-    has_images = scene.textures.images.shape[0] > 0
+    no traversal; the color and metal tables take one accumulation per
+    stage over all of the stage's bounces, the atlas one scatter of every
+    stage's rows in row order (kernel K2 on the card: one call per
+    tile).  ``rad_total`` and ``g`` are in input-row order."""
     gacc = _zero_grads(scene)
-    for block in stage_blocks(tape, rad_total, g):
-        gacc = _accum_rows(scene, gacc, *block, has_images)
+    image_rows = [_accum_rows(gacc, *block) for block in stage_blocks(tape, rad_total, g)]
+    if scene.textures.images.shape[0] > 0:
+        _gimg_add(gacc[1], image_rows)
     return gacc

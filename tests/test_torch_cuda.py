@@ -1,5 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: K1 to K6 against their
-plain versions on the card, and the render and gradient paths on the
+plain versions on the card (K1, K3 and K4 also on tables past 48 KB and
+past what shared memory holds; K2 bit for bit against its plain version
+run on the CPU, and repeatable), and the render and gradient paths on the
 card.  They skip without a GPU.  The file imports no JAX, so on a machine with a GPU
 and without JAX it runs on its own:
 
@@ -17,6 +19,7 @@ from ray_tracing_tpu_torch.ops import _build
 from ray_tracing_tpu_torch.ops import cuda_intersect as ci
 from ray_tracing_tpu_torch.ops import cuda_scatter as cs
 from ray_tracing_tpu_torch.ops import cuda_triangles as ct
+from ray_tracing_tpu_torch.ops import geometry as geo
 from ray_tracing_tpu_torch.ops import rng
 from ray_tracing_tpu_torch.render.prb_scalar import params_of, prb_loss_and_grad_all
 
@@ -52,30 +55,34 @@ def _ray_sets(bundle, device):
     return [(ro, rd), (torch.from_numpy(iro).to(device), torch.from_numpy(ird).to(device))]
 
 
+def _assert_phase_a_equal(got, want):
+    """found, kind and idx equal, t bit-equal."""
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert torch.equal(got[0], want[0])
+
+
 def test_kernel_matches_plain_on_card(cuda, zy):
-    sph, rect = ci.pack_primitive_tables(zy.scene.to(cuda))
+    tables = zy.scene.to(cuda).phase_a
     for ro, rd in _ray_sets(zy, cuda):
         before = ci.LAUNCHES
-        got = ci.phase_a_cuda(sph, rect, ro, rd, 1e-3, np.inf)
+        got = ci.phase_a_cuda(tables, ro, rd, 1e-3, np.inf)
         torch.cuda.synchronize()
         assert ci.LAUNCHES == before + 1
-        want = ci.phase_a_plain(sph, rect, ro, rd, 1e-3, np.inf)
-        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
-        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+        _assert_phase_a_equal(got, ci.phase_a_plain(tables, ro, rd, 1e-3, np.inf))
 
 
 def test_kernel_refuses_bad_inputs(cuda, zy):
-    sph, rect = ci.pack_primitive_tables(zy.scene.to(cuda))
+    tables = zy.scene.to(cuda).phase_a
     ro, rd = _ray_sets(zy, cuda)[1]
     with pytest.raises(ValueError, match="contiguous"):
-        ci.phase_a_cuda(sph, rect, ro.t().contiguous().t(), rd, 1e-3, np.inf)
+        ci.phase_a_cuda(tables, ro.t().contiguous().t(), rd, 1e-3, np.inf)
     with pytest.raises(ValueError, match="is on"):
-        ci.phase_a_cuda(sph.cpu(), rect, ro, rd, 1e-3, np.inf)
+        ci.phase_a_cuda(zy.scene.phase_a, ro, rd, 1e-3, np.inf)
     with pytest.raises(TypeError, match="float32"):
-        ci.phase_a_cuda(sph, rect, ro.double(), rd, 1e-3, np.inf)
+        ci.phase_a_cuda(tables, ro.double(), rd, 1e-3, np.inf)
     empty = torch.zeros((0, 3), device=cuda)
     before = ci.LAUNCHES
-    assert all(x.numel() == 0 for x in ci.phase_a_cuda(sph, rect, empty, empty, 1e-3, np.inf))
+    assert all(x.numel() == 0 for x in ci.phase_a_cuda(tables, empty, empty, 1e-3, np.inf))
     assert ci.LAUNCHES == before
 
 
@@ -109,40 +116,74 @@ def _scatter_rows(n, p, seed, device):
     return [torch.from_numpy(x).to(device) for x in (texel, contrib, mask)]
 
 
+def _k2_against_cpu(p, segments, base=None):
+    """K2 into a (p, 3) table on the card, twice, against
+    scatter_add_plain on the CPU over the same rows: both runs equal it
+    bit for bit.  Returns the number of launches of one call."""
+    base = torch.zeros((p, 3)) if base is None else base
+    device = segments[0][0].device
+    before = cs.LAUNCHES
+    got = cs.scatter_add_cuda(base.to(device), segments)
+    torch.cuda.synchronize()
+    launches = cs.LAUNCHES - before
+    again = cs.scatter_add_cuda(base.to(device), segments)
+    want = cs.scatter_add_plain(base.clone(), [tuple(x.cpu() for x in s) for s in segments])
+    assert torch.equal(got.cpu(), want) and torch.equal(again, got)
+    return launches
+
+
 def test_scatter_kernel_matches_plain_on_card(cuda):
     """Heavy duplicates (half the rows on 64 texels), texel -1 rows and a
-    ragged row count.  Atomics reorder the sums of duplicates: rtol 1e-5;
-    rows without duplicates are bit-equal."""
+    ragged row count, as one segment and cut into three: bit-equal to the
+    plain version run on the CPU, and the same bits twice; rows without
+    duplicates too."""
     p = 4099
     texel, contrib, mask = _scatter_rows(100_003, p, 0, cuda)
-    before = cs.LAUNCHES
-    got = cs.scatter_add_cuda(torch.zeros((p, 3), device=cuda), texel, contrib, mask)
-    torch.cuda.synchronize()
-    assert cs.LAUNCHES == before + 1
-    want = cs.scatter_add_plain(torch.zeros((p, 3), device=cuda), texel, contrib, mask)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    base = torch.from_numpy(np.random.RandomState(3).uniform(0, 1, (p, 3)).astype(np.float32))
+    assert _k2_against_cpu(p, [(texel, contrib, mask)], base) == 1
+    cuts = (0, 40_000, 40_001, 100_003)
+    segments = [(texel[a:b], contrib[a:b], mask[a:b]) for a, b in zip(cuts[:-1], cuts[1:])]
+    assert _k2_against_cpu(p, segments, base) == 1
     unique = torch.randperm(p, device=cuda)[:1000].to(torch.int32)
     rows = (unique, contrib[:1000].contiguous(), torch.ones(1000, dtype=torch.bool, device=cuda))
-    once = cs.scatter_add(torch.zeros((p, 3), device=cuda), *rows)
-    assert torch.equal(once, cs.scatter_add_plain(torch.zeros((p, 3), device=cuda), *rows))
+    once = cs.scatter_add(torch.zeros((p, 3), device=cuda), [rows])
+    assert torch.equal(once, cs.scatter_add_plain(torch.zeros((p, 3), device=cuda), [rows]))
+
+
+def test_scatter_kernel_deterministic_all_live(cuda):
+    """All rows live: 300,017 rows over 3 segments, on 50,000 texels (a
+    few rows each, sorted in registers), on 5,000 (lists past that batch:
+    the rows between their ends read in order) and on one (a list past
+    the walk: every row read in order): bit-equal to the CPU's plain
+    version and repeatable."""
+    r = np.random.RandomState(4)
+    for p, texels in ((60_000, 50_000), (5000, 5000), (7, 1)):
+        n = 300_017
+        texel = torch.from_numpy(r.randint(0, texels, n).astype(np.int32)).to(cuda)
+        contrib = torch.from_numpy(r.uniform(-1, 1, (n, 3)).astype(np.float32)).to(cuda)
+        mask = torch.ones(n, dtype=torch.bool, device=cuda)
+        cuts = (0, 100_000, 250_000, n)
+        assert _k2_against_cpu(p, [(texel[a:b], contrib[a:b], mask[a:b])
+                                   for a, b in zip(cuts[:-1], cuts[1:])]) == 1
 
 
 def test_scatter_kernel_refuses_bad_inputs(cuda):
     texel, contrib, mask = _scatter_rows(1000, 64, 1, cuda)
     g = torch.zeros((64, 3), device=cuda)
     with pytest.raises(TypeError, match="int32"):
-        cs.scatter_add_cuda(g, texel.long(), contrib, mask)
+        cs.scatter_add_cuda(g, [(texel.long(), contrib, mask)])
     with pytest.raises(ValueError, match="contiguous"):
-        cs.scatter_add_cuda(g, texel, contrib.t().contiguous().t(), mask)
+        cs.scatter_add_cuda(g, [(texel, contrib.t().contiguous().t(), mask)])
     with pytest.raises(ValueError, match="is on"):
-        cs.scatter_add_cuda(g, texel.cpu(), contrib, mask)
+        cs.scatter_add_cuda(g, [(texel.cpu(), contrib, mask)])
     with pytest.raises(ValueError, match="shape"):
-        cs.scatter_add_cuda(g, texel[:10], contrib, mask)
+        cs.scatter_add_cuda(g, [(texel[:10], contrib, mask)])
     with pytest.raises(TypeError, match="bool"):
-        cs.scatter_add_cuda(g, texel, contrib, mask.to(torch.uint8))
+        cs.scatter_add_cuda(g, [(texel, contrib, mask.to(torch.uint8))])
     before = cs.LAUNCHES
     empty = texel[:0], contrib[:0], mask[:0]
-    assert cs.scatter_add_cuda(g, *empty) is g and cs.LAUNCHES == before
+    assert cs.scatter_add_cuda(g, [empty]) is g and cs.scatter_add_cuda(g, []) is g
+    assert cs.LAUNCHES == before
 
 
 def test_gradient_pass_on_card_matches_cpu(cuda, zy):
@@ -189,19 +230,71 @@ def _bunny_rays(n, seed, device):
 
 def test_transformed_kernel_matches_plain_on_card(cuda, scene_json):
     """K3 (scene.json's rects carry transforms) against phase_a_plain:
-    kind and idx equal, t to rtol 1e-5, and some winners on the rotated
+    kind and idx equal, t bit-equal, and some winners on the rotated
     cuboid."""
-    sph, rect = ci.pack_primitive_tables(scene_json.scene.to(cuda))
-    assert rect.shape[1] == ci.RECT_COLS + ci.TF_COLS
+    tables = scene_json.scene.to(cuda).phase_a
+    assert tables.rect_tf and tables.slots.shape[0] == 2
     for ro, rd in _ray_sets(scene_json, cuda):
         before = (ci.LAUNCHES, ci.TF_LAUNCHES)
-        got = ci.phase_a_cuda(sph, rect, ro, rd, 1e-3, np.inf)
+        got = ci.phase_a_cuda(tables, ro, rd, 1e-3, np.inf)
         torch.cuda.synchronize()
         assert (ci.LAUNCHES, ci.TF_LAUNCHES) == (before[0], before[1] + 1)
-        want = ci.phase_a_plain(sph, rect, ro, rd, 1e-3, np.inf)
-        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
-        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+        _assert_phase_a_equal(got, ci.phase_a_plain(tables, ro, rd, 1e-3, np.inf))
         assert int(((got[1] == 2) & (got[2] < 6)).sum()) > 0
+
+
+def _large_tables(kernel, n_sph, n_rect, seed=0):
+    """Seeded per-row tables of ``n_sph`` spheres and ``n_rect`` rects in
+    the 555 box, in the kernels' layout on the CPU: for "K3" each rect
+    under one of three transforms, for "K4" the spheres moving."""
+    r = np.random.RandomState(seed)
+    sph = np.concatenate([r.uniform(20, 535, (n_sph, 3)), r.uniform(1.0, 6.0, (n_sph, 1))], 1)
+    if kernel == "K4":
+        sph = np.concatenate([sph, r.uniform(-20, 20, (n_sph, 3))], 1)
+    axis = torch.from_numpy(r.randint(0, 3, n_rect))
+    lo = r.uniform(40, 500, (n_rect, 2))
+    bounds = np.stack([lo[:, 0], lo[:, 0] + r.uniform(5, 30, n_rect), lo[:, 1],
+                       lo[:, 1] + r.uniform(5, 30, n_rect), r.uniform(40, 500, n_rect)], 1)
+    rect = torch.cat([*geo.rect_basis(axis), torch.from_numpy(bounds).float()], 1)
+    if kernel == "K3":
+        slots = []
+        for th in (15.0, -40.0, 70.0):
+            a = np.deg2rad(th)
+            inv = np.array([[np.cos(a), 0, -np.sin(a)], [0, 1, 0], [np.sin(a), 0, np.cos(a)]])
+            slots.append(np.concatenate([inv.ravel(), r.uniform(-30, 30, 3)]))
+        rect = torch.cat([rect, torch.from_numpy(np.array(slots)[np.arange(n_rect) % 3]).float()],
+                         1)
+    return ci.pack_phase_a_tables(torch.from_numpy(sph).float().contiguous(),
+                                  rect.contiguous())
+
+
+@pytest.mark.parametrize("case", ["K1 past 48 KB", "K1 past shared memory",
+                                  "K3 past 48 KB", "K3 past shared memory",
+                                  "K4 past shared memory"])
+def test_phase_a_kernels_on_large_tables(cuda, case):
+    """Tables past the 48 KB a block gets without opting in (5,000
+    spheres, 2,500 transformed rects over 3 transforms) and past the
+    227 KB it may opt in to (15,000 spheres, 4,000 transformed rects,
+    15,000 moving spheres; streamed in chunks): found, kind and idx
+    equal to phase_a_plain, t bit-equal, on rays from inside the box."""
+    sizes = {"K1 past 48 KB": (5000, 60), "K1 past shared memory": (15_000, 60),
+             "K3 past 48 KB": (30, 2500), "K3 past shared memory": (30, 4000),
+             "K4 past shared memory": (15_000, 60)}[case]
+    host = _large_tables(case[:2], *sizes)
+    assert (host.rect_tf, host.sph_motion) == (case[:2] == "K3", case[:2] == "K4")
+    nbytes = 4 * (host.sph.numel() + host.rect.numel())
+    assert nbytes > (227 * 1024 if "shared memory" in case else 48 * 1024)
+    tables = host.to(cuda)
+    r = np.random.RandomState(1)
+    ro = torch.from_numpy(r.uniform(1.0, 554.0, (4099, 3)).astype(np.float32)).to(cuda)
+    rd = torch.from_numpy(r.normal(size=(4099, 3)).astype(np.float32)).to(cuda)
+    rd = (rd / rd.norm(dim=1, keepdim=True)).contiguous()
+    t_ray = torch.from_numpy(r.uniform(0, 1, 4099).astype(np.float32)).to(cuda)
+    got = ci.phase_a_cuda(tables, ro, rd, 1e-3, np.inf, t_ray)
+    torch.cuda.synchronize()
+    want = ci.phase_a_plain(tables, ro, rd, 1e-3, np.inf, t_ray)
+    _assert_phase_a_equal(got, want)
+    assert int((got[1] == (2 if case.startswith("K3") else 0)).sum()) > 100
 
 
 def _assert_same_winners(got, want):
@@ -451,11 +544,11 @@ def test_cluster_kernel_refuses_bad_inputs(cuda, c6):
 
 def test_motion_kernel_matches_plain_on_card(cuda, motion):
     """K4 (a moving sphere table, (S, 7)) against phase_a_plain with the
-    rays' shutter times: kind and idx equal, t within rtol 1e-5, winners
+    rays' shutter times: kind and idx equal, t bit-equal, winners
     on the moving spheres; without t_ray both test time 0."""
     scene, cam, _ = motion
-    sph, rect = ci.pack_primitive_tables(scene.to(cuda))
-    assert sph.shape[1] == ci.SPHERE_COLS + ci.MOTION_COLS
+    tables = scene.to(cuda).phase_a
+    assert tables.sph_motion
     ro, rd, _, _ = camera_rays(Camera.build(cam, 1.0).to(cuda), rng.key(3), 128, 128)
     r = np.random.RandomState(0)
     iro = r.uniform([-3, 0.1, -3], [3, 2.5, 3], (5000, 3))
@@ -467,13 +560,11 @@ def test_motion_kernel_matches_plain_on_card(cuda, motion):
         t_ray = torch.from_numpy(r.uniform(0, 1, ro.shape[0]).astype(np.float32)).to(cuda)
         for times in (t_ray, None):
             before = (ci.LAUNCHES, ci.TF_LAUNCHES, ci.MOTION_LAUNCHES)
-            got = ci.phase_a_cuda(sph, rect, ro, rd, 1e-3, np.inf, times)
+            got = ci.phase_a_cuda(tables, ro, rd, 1e-3, np.inf, times)
             torch.cuda.synchronize()
             assert (ci.LAUNCHES, ci.TF_LAUNCHES, ci.MOTION_LAUNCHES) == (
                 before[0], before[1], before[2] + 1)
-            want = ci.phase_a_plain(sph, rect, ro, rd, 1e-3, np.inf, times)
-            assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
-            torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+            _assert_phase_a_equal(got, ci.phase_a_plain(tables, ro, rd, 1e-3, np.inf, times))
             assert int(((got[1] == 0) & (got[2] > 0)).sum()) > 0
 
 

@@ -84,7 +84,8 @@ def test_phase_a_plain_matches_jax_xla_phase_a(zy, rays):
     ro, rd, jro, jrd = rays
     sph, rect = ci.pack_primitive_tables(ours.scene)
     hit = jintersect(ref.scene, jnp.asarray(jro), jnp.asarray(jrd), 1e-3, jnp.inf)
-    res = ci.phase_a_plain(sph, rect, torch.from_numpy(jro), torch.from_numpy(jrd), 1e-3, np.inf)
+    res = ci.phase_a_plain(ours.scene.phase_a, torch.from_numpy(jro), torch.from_numpy(jrd),
+                           1e-3, np.inf)
     _assert_phase_a_agrees(res, (hit.t, hit.kind, hit.index), sph.numpy(), jro, jrd)
     # on these rays the XLA phase A rounds exactly as the port does
     np.testing.assert_allclose(res[0].numpy(), np.asarray(hit.t), rtol=1e-5)
@@ -95,7 +96,8 @@ def test_phase_a_plain_matches_pallas_kernel_semantics(zy, rays):
     _, _, jro, jrd = rays
     sph, rect = ci.pack_primitive_tables(ours.scene)
     kernel = jpallas.pallas_phase_a(ref.scene, jnp.asarray(jro), jnp.asarray(jrd), interpret=True)
-    res = ci.phase_a_plain(sph, rect, torch.from_numpy(jro), torch.from_numpy(jrd), 1e-3, np.inf)
+    res = ci.phase_a_plain(ours.scene.phase_a, torch.from_numpy(jro), torch.from_numpy(jrd),
+                           1e-3, np.inf)
     _assert_phase_a_agrees(res, kernel, sph.numpy(), jro, jrd)
 
 
@@ -143,12 +145,12 @@ def test_hit_record_matches_jax(zy, rays, which):
 
 def test_phase_a_on_cpu_takes_the_plain_version(zy, rays):
     ro, rd, _, _ = rays
-    sph, rect = ci.pack_primitive_tables(zy[0].scene)
+    tables = zy[0].scene.phase_a
     before = ci.LAUNCHES
-    got = ci.phase_a(sph, rect, ro, rd, 1e-3, np.inf)
-    want = ci.phase_a_plain(sph, rect, ro, rd, 1e-3, np.inf)
+    got = ci.phase_a(tables, ro, rd, 1e-3, np.inf)
+    want = ci.phase_a_plain(tables, ro, rd, 1e-3, np.inf)
     assert ci.LAUNCHES == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="CUDA"):
-        ci.phase_a_cuda(sph, rect, ro, rd, 1e-3, np.inf)
+        ci.phase_a_cuda(tables, ro, rd, 1e-3, np.inf)

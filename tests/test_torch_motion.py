@@ -183,9 +183,9 @@ def test_motion_phase_a_matches_jax(motion, reference):
     conditioning (ROADMAP Queue 3, grazing sphere hits)."""
     scene, _, _, jscene = motion
     ro, rd, t_ray = _rays(motion, 3072)
-    sph, rect = ci.pack_primitive_tables(scene)
+    sph, _ = ci.pack_primitive_tables(scene)
     t, kind, idx = (x.numpy() for x in ci.phase_a_plain(
-        sph, rect, torch.from_numpy(ro), torch.from_numpy(rd), 1e-3, np.inf,
+        scene.phase_a, torch.from_numpy(ro), torch.from_numpy(rd), 1e-3, np.inf,
         torch.from_numpy(t_ray)))
     jro, jrd, jt = jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(t_ray)
     if reference == "xla":
@@ -218,12 +218,14 @@ def test_phase_a_without_t_ray_tests_time_zero(motion):
     scene, _, _, _ = motion
     ro, rd, t_ray = (torch.from_numpy(x) for x in _rays(motion, 512))
     sph, rect = ci.pack_primitive_tables(scene)
-    none = ci.phase_a(sph, rect, ro, rd, 1e-3, np.inf)
-    zero = ci.phase_a(sph, rect, ro, rd, 1e-3, np.inf, torch.zeros_like(t_ray))
-    static = ci.phase_a(sph[:, :4].contiguous(), rect, ro, rd, 1e-3, np.inf, t_ray)
+    tables = scene.phase_a
+    none = ci.phase_a(tables, ro, rd, 1e-3, np.inf)
+    zero = ci.phase_a(tables, ro, rd, 1e-3, np.inf, torch.zeros_like(t_ray))
+    static = ci.phase_a(ci.pack_phase_a_tables(sph[:, :4].contiguous(), rect), ro, rd, 1e-3,
+                        np.inf, t_ray)
     for a, b, c in zip(none, zero, static):
         assert torch.equal(a, b) and torch.equal(a, c)
-    moved = ci.phase_a(sph, rect, ro, rd, 1e-3, np.inf, t_ray)
+    moved = ci.phase_a(tables, ro, rd, 1e-3, np.inf, t_ray)
     assert not torch.equal(moved[0], none[0])
 
 

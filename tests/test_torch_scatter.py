@@ -18,8 +18,8 @@ def _both(p, texel, contrib, mask, base=None):
     """(port table, JAX table) after scattering the same rows into the
     same (P, 3) starting table."""
     base = np.zeros((p, 3), np.float32) if base is None else base
-    ours = cs.scatter_add(torch.from_numpy(base.copy()), torch.from_numpy(texel),
-                          torch.from_numpy(contrib), torch.from_numpy(mask))
+    ours = cs.scatter_add(torch.from_numpy(base.copy()), [(torch.from_numpy(texel),
+                          torch.from_numpy(contrib), torch.from_numpy(mask))])
     g0 = jnp.asarray(base).T.reshape(3, -1)
     g0 = jnp.pad(g0, ((0, 0), (0, planar_rows(p) * 128 - p))).reshape(3, -1, 128)
     theirs = from_planar(scatter_add_planar(g0, jnp.asarray(texel), jnp.asarray(contrib),
@@ -75,11 +75,12 @@ def test_wrapper_takes_plain_version_only_on_cpu():
     g = torch.zeros((4, 3), device="meta")
     t = torch.zeros((2,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
-        cs.scatter_add(g, t, torch.zeros((2, 3), device="meta"), torch.ones(2, dtype=torch.bool,
-                                                                             device="meta"))
+        cs.scatter_add(g, [(t, torch.zeros((2, 3), device="meta"),
+                            torch.ones(2, dtype=torch.bool, device="meta"))])
     with pytest.raises(ValueError, match="CUDA tensors"):
-        cs.scatter_add_cuda(torch.zeros((4, 3)), torch.zeros((2,), dtype=torch.int32),
-                            torch.zeros((2, 3)), torch.ones(2, dtype=torch.bool))
+        cs.scatter_add_cuda(torch.zeros((4, 3)), [(torch.zeros((2,), dtype=torch.int32),
+                                                   torch.zeros((2, 3)),
+                                                   torch.ones(2, dtype=torch.bool))])
 
 
 def test_build_keys_differ_per_source(tmp_path):
@@ -93,3 +94,38 @@ def test_build_keys_differ_per_source(tmp_path):
     assert _build.build_key(a) != _build.build_key(a, _build.NVCC_FLAGS + ("-G",))
     libs = {_build.library_path(s) for s in (cs.SOURCE, _build.CSRC / "intersect.cu")}
     assert len(libs) == 2 and all(lib.parent == _build.BUILD_DIR for lib in libs)
+
+
+def _segments(seed, sizes=(3000, 1700, 900), p=257):
+    """Seeded segments with duplicates inside and across them (half the
+    rows on 16 texels), negative texels and half the rows masked."""
+    r = np.random.RandomState(seed)
+    out = []
+    for n in sizes:
+        texel = np.where(r.rand(n) < 0.5, r.randint(0, 16, n), r.randint(-1, p, n))
+        out.append((torch.from_numpy(texel.astype(np.int32)),
+                    torch.from_numpy(r.uniform(-1, 1, (n, 3)).astype(np.float32)),
+                    torch.from_numpy(r.rand(n) < 0.5)))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_segments_plain_equals_sequential_calls(seed):
+    """One call over several segments equals one call per segment in
+    order, bit for bit, and both equal a serial float32 loop in row order
+    (the order K2 adds in on the card)."""
+    p = 257
+    segs = _segments(seed, p=p)
+    base = torch.from_numpy(np.random.RandomState(9).uniform(0, 1, (p, 3)).astype(np.float32))
+    once = cs.scatter_add_plain(base.clone(), segs)
+    each = base.clone()
+    for seg in segs:
+        cs.scatter_add_plain(each, [seg])
+    assert torch.equal(once, each)
+    want = base.numpy().copy()
+    for texel, contrib, mask in segs:
+        for t, c, m in zip(texel.numpy(), contrib.numpy(), mask.numpy()):
+            if m and t >= 0:
+                want[t] = want[t] + c
+    np.testing.assert_array_equal(once.numpy(), want)
+    assert cs.scatter_add(base.clone(), []).equal(base)

@@ -27,10 +27,11 @@ def _assert_tables_equal(ours, ref, path="scene"):
     the JAX table exactly (values, dtype and shape); the JAX package's
     BVH and cluster tables, which the port does not build, are not
     fields of the port's tables.  The CUDA sweeps' packed tables
-    (``sw_table``, ``sw_aabb``) have no JAX field of that name;
-    tests/test_torch_sweep_cull.py holds them against fresh packs."""
+    (``sw_table``, ``sw_aabb``) and phase A's (``phase_a``) have no JAX
+    field of that name; tests/test_torch_sweep_cull.py and
+    tests/test_torch_phase_a_tables.py hold them against fresh packs."""
     for f in dataclasses.fields(ours):
-        if f.name in ("sw_table", "sw_aabb"):
+        if f.name in ("sw_table", "sw_aabb", "phase_a"):
             continue
         mine, theirs = getattr(ours, f.name), getattr(ref, f.name)
         where = f"{path}.{f.name}"

@@ -158,9 +158,8 @@ def test_transformed_phase_a_matches_jax_xla(scenes, rays):
     nrm]) as the XLA phase A."""
     ours, ref = scenes
     ro, rd = RAYS[rays]()
-    sph, rect = ci.pack_primitive_tables(ours)
     t, kind, idx = (x.numpy() for x in ci.phase_a_plain(
-        sph, rect, torch.from_numpy(ro), torch.from_numpy(rd), 1e-3, np.inf))
+        ours.phase_a, torch.from_numpy(ro), torch.from_numpy(rd), 1e-3, np.inf))
     rt, rkind, ridx = _xla_phase_a(ref, ro, rd)
     np.testing.assert_array_equal(kind, rkind)
     np.testing.assert_array_equal(idx[kind >= 0], ridx[rkind >= 0])
@@ -183,7 +182,7 @@ def test_transformed_phase_a_matches_pallas_kernel_semantics(scenes, rays):
     ro, rd = RAYS[rays]()
     sph, rect = ci.pack_primitive_tables(ours)
     t, kind, idx = (x.numpy() for x in ci.phase_a_plain(
-        sph, rect, torch.from_numpy(ro), torch.from_numpy(rd), 1e-3, np.inf))
+        ours.phase_a, torch.from_numpy(ro), torch.from_numpy(rd), 1e-3, np.inf))
     rt, rkind, ridx = (np.asarray(x) for x in jpallas.pallas_phase_a(
         ref, jnp.asarray(ro), jnp.asarray(rd), interpret=True))
     np.testing.assert_array_equal(kind, rkind)
@@ -297,8 +296,7 @@ def test_scene_json_camera_rays_hit_the_transformed_cuboid():
     ours = prt.load_scene_json("data/scene.json")
     ref = jrt.load_scene_json("data/scene.json")
     jro, jrd, _, _ = jcamera_rays(JCamera.build(ref.camera, 1.0), jax.random.key(3), 32, 32)
-    sph, rect = ci.pack_primitive_tables(ours.scene)
-    _, kind, idx = ci.phase_a_plain(sph, rect, torch.from_numpy(np.array(jro)),
+    _, kind, idx = ci.phase_a_plain(ours.scene.phase_a, torch.from_numpy(np.array(jro)),
                                     torch.from_numpy(np.array(jrd)), 1e-3, np.inf)
     on_cuboid = (kind == 2) & (ours.scene.rects.transform[idx.long()] == 1)
     assert int(on_cuboid.sum()) > 50
