@@ -23,25 +23,26 @@ Phases (any failure raises and exits non-zero):
      zy atlas-gradient table, bit for bit, and two runs on the card
      bit-identical: 1,310,720 seeded rows (~5 % live, heavy duplicates),
      the same rows without duplicates, the real rows of one zy tile's
-     tape sweep (each stage, and the three stages in one call) and
-     288,164 rows all live;
+     tape sweep into the table [gimg | gcol | gmet] (each stage, and the
+     three stages in one call) and 288,164 rows all live;
   7. the gradient path: zy at 1024x1024 depth 20, params_of -> 16 tiles
      of 65,536 rays under one trace key with ids_base,
      prb_loss_and_grad_all(torch.sum, defer_scalars=True) per tile, one
      global scalar_tangent_pass; loss = image mean.  All five gradient
-     leaves finite and nonzero, K1 and K2 launched, the color gradient
-     against a central difference of the image mean on the card (eps
-     1e-2, rtol 1e-2), a second pass at the same key equal in loss and in
-     the images gradient (K2's leaf) bit for bit, the other gradients to
-     rtol 1e-4 (index_add_ on the card adds with atomics), and three SGD
-     steps of an L2 fit to a target rendered under another key;
+     leaves finite and nonzero, K1 and K2 launched, the loss equal to the
+     mean of the image render_pass draws (the renderer's own entry, rtol
+     1e-5), the color gradient against a central difference of that mean
+     on the card (eps 1e-2, rtol 1e-2), a second pass at the same key equal in loss and in
+     the color, images and metal-albedo gradients (K2's leaves) bit for
+     bit, fuzz and IR to rtol 1e-4, and three SGD steps of an L2 fit to a
+     target rendered under another key;
   8. timings with CUDA events: ms per 1024x1024 depth-20 fwd+bwd pass
      and traced segments per second (counted untimed on the same keys, as
      bench.py counts them; 1024^2 rays per second beside it), split into
      taped forward, sweep and tangent pass; the device's busy share over
      one tile's fwd+bwd; K2 on one zy tile's sweep rows (one call, two
      launches) against its plain version, index_add_ and the deterministic
-     index_put_ on the live rows, and the empty kernel.
+     index_put_ on the live rows, and the empty kernel;
   9. K3 (the transformed phase A, csrc/intersect.cu) against its plain
      version on the card, for the 800x800 camera rays of data/scene.json
      and 65,536 random rays in its box (numpy seed 0): hit/miss, kind
@@ -72,7 +73,9 @@ Phases (any failure raises and exits non-zero):
      rays from the camera rays' mesh hits (also against the dense plain
      version) and 65,536 rays on 27 bunnies (1,048 clusters, K7's case):
      hit/miss and index equal, t bit-equal on hits; the needed pairs and
-     the per-warp list lengths and sweeps;
+     the per-warp list lengths and sweeps; K1 against its plain version on
+     C6's own table (its ground rect) for the same camera rays and
+     secondary rays, as phase 2;
  16. the C6 path: Renderer(512x512, default depth 20), render(k) for
      k = 0..2 -- finite, non-negative, mean in C6_MEAN, render(0)
      deterministic, K6 launched and K5 not; 32x32 depth-1 card == CPU;
@@ -83,13 +86,37 @@ Phases (any failure raises and exits non-zero):
      k = 0..2 -- as phase 16 with MB_MEAN, K4 launched and K1 not;
      128x128 compacted == dense; 32x32 depth-1 card == CPU;
  19. timings: ms per pass and segments/s of both scenes, K6 on the
-     busiest C6 camera-ray tile and the C6 secondary tile as in 13, its
-     plain version on the secondary tile, K4 against its plain version
-     (CUDA events and torch.profiler), the device's busy share over
+     busiest C6 camera-ray tile, the C6 secondary tile and the 27-bunny
+     tile of phase 15 (K7's case) as in 13, its
+     plain version on the secondary tile, K1 on C6's table and the
+     secondary tile against its plain version and its bound, K4 against
+     its plain version (CUDA events and torch.profiler), the device's
+     busy share over
      profiled 128x128 passes of both and K6's part of C6's;
  20. K1, K3 and K4 against their plain version on tables past the 48 KB
      a block gets without opting in and past the 227 KB it may opt in to
-     (streamed in chunks): found, kind and index equal, t bit-equal.
+     (streamed in chunks): found, kind and index equal, t bit-equal;
+ 21. the third main path: the full-parameter fwd+bwd of data/scene.json
+     at 800x800 depth 50 (10 tiles of 65,536 rays, one tangent pass;
+     loss = image mean), driven with every count at 0 just before: all
+     five leaves finite and nonzero, the fog's isotropic albedo row
+     nonzero, K2 once per tile, K3 and K5 launched, the loss equal to the
+     mean of the image render_pass draws (rtol 1e-5), the color gradient
+     against a central difference of that mean (eps 1e-2, rtol 1e-2), a
+     second pass
+     at the same key equal in loss and in the color, images and
+     metal-albedo gradients bit for bit (fuzz and IR too, or else held
+     to the card's two-key noise floor); then timings: ms per pass
+     (CUDA events), segments per second counted untimed, the split into
+     taped forward, sweep and tangent pass, K2 on one tile's rows bit for
+     bit against its plain version on the CPU and repeatable, timed
+     against its plain version, index_add_ and the bound, and the device's
+     busy share over one profiled tile;
+ 22. the same for C6 at 512x512 depth 20 (4 tiles): leaves finite, the
+     color gradient nonzero, the loss the image mean, K6 launched and K5
+     not, the repeat equal;
+ 23. at an equal t the TPU's kind order decides on the card: a rect and a
+     sphere (K1) win over a triangle (K5), which wins off them.
 Every kernel time comes with its bound (bound()): the larger of its
 operations over the float32 peak and its bytes over the memory rate,
 counted from this run's inputs (phase_a_bound: one object ray per ray
@@ -104,7 +131,9 @@ launches of the forward render of phase 3 and of the fwd+bwd of phase
 7, K2 with the calls of phase 7 (two launches each) and the time of
 index_add_ on its rows, K3
 and K5 with those of phase 11, K6 with those of phase 16, K4 with those
-of phase 18), the card's name and power limit, and a JSON device
+of phase 18; K2, K3 and K5 again with the launches of phase 21; K1 on
+C6's table with the launches of phase 16 and of phase 22, K2 and K6 with
+those of phase 22), the card's name and power limit, and a JSON device
 record.
 """
 
@@ -139,7 +168,8 @@ SPHERE_FLOPS = 20  # oc, half_b, c, disc, sqrt, two roots
 RECT_FLOPS = 36  # plane t, then both in-plane coordinates
 TF_FLOPS = 45  # an object ray: inv ro + inv_t, inv rd, its norm, the division
 MOTION_FLOPS = 6  # c + t_ray v
-K2_KERNELS = 2  # kernels one K2 call launches (push, repeats)
+K2_KERNELS = 2  # kernels one K2 call launches (place, sum)
+COLOR_LINEAR = ("color", "images", "metal_albedo")  # the leaves K2 accumulates
 TRI_FLOPS = 40  # det, 1/det, u, v, t of the triple-product form
 SLAB_FLOPS = 12  # a cluster AABB's six differences and six products
 
@@ -189,11 +219,18 @@ def profile_device(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # the raw trace: building prof.events() for a pass of ~300k kernels
+    # and their CPU ops takes minutes of host time
+    try:
+        seen = [(e.name(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA]
+    except AttributeError:  # a profiler without kineto results
+        seen = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
     kernels = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, ms = kernels.get(e.name, (0, 0.0))
-            kernels[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    for name, ms in seen:
+        n, total = kernels.get(name, (0, 0.0))
+        kernels[name] = (n + 1, total + ms)
     return wall_ms, kernels
 
 
@@ -259,15 +296,15 @@ def compare_phase_a(ci, tables, ro, rd, what: str, tag: str, t_ray=None):
     return err, kind, idx
 
 
-def compare_k1(ci, tables, ro, rd, what: str) -> float:
+def compare_k1(ci, tables, ro, rd, what: str, tag: str = "2") -> float:
     """K1 against phase_a_plain; returns the largest |dt| over hit rays."""
     before = ci.LAUNCHES
-    err = compare_phase_a(ci, tables, ro, rd, f"K1 vs plain, {what}", "2")[0]
+    err = compare_phase_a(ci, tables, ro, rd, f"K1 vs plain, {what}", tag)[0]
     check(ci.LAUNCHES == before + 1, "the plain tables launched K1")
     return err
 
 
-def compare_k2(cs, p: int, segments, what: str) -> float:
+def compare_k2(cs, p: int, segments, what: str, tag: str = "6") -> float:
     """K2 into a zeroed (p, 3) table on the card, twice, against
     scatter_add_plain run on the CPU over the same rows: both runs equal
     it bit for bit.  Returns the largest |difference| (0.0)."""
@@ -284,7 +321,7 @@ def compare_k2(cs, p: int, segments, what: str) -> float:
     texel = torch.cat([t for t, _, _ in segments])
     n_live = int(live.sum())
     n_dup = n_live - int(torch.unique(texel[live]).numel())
-    print(f"[6] K2 vs plain on the CPU, {what}: {texel.shape[0]} rows in {len(segments)} "
+    print(f"[{tag}] K2 vs plain on the CPU, {what}: {texel.shape[0]} rows in {len(segments)} "
           f"segment(s), {n_live} live, {n_dup} duplicate live rows; max |d| = {err!r}, "
           f"torch.equal {torch.equal(got.cpu(), want)}; two runs on the card torch.equal "
           f"{torch.equal(got, again)}")
@@ -293,20 +330,18 @@ def compare_k2(cs, p: int, segments, what: str) -> float:
     return err
 
 
-def zy_tile_rows(scene, ro, rd, k_trace):
-    """The atlas rows ``(texel, contrib, mask)`` of each stage of the tape
-    sweep of the first 65,536-ray tile of the zy fwd+bwd at depth 20, with
-    the image-mean cotangent: what K2 takes per tile."""
+def tile_segments(scene, ro, rd, k_trace, depth: int):
+    """The rows ``(row, contrib, mask)`` of each stage of the tape sweep of
+    the first 65,536-ray tile of a fwd+bwd pass, with the image-mean
+    cotangent, and the length of the gradient table [gimg | gcol | gmet]
+    they go into: what K2 takes per tile."""
     import torch
-    from ray_tracing_tpu_torch.render.prb_tape import F_IMAGE, _flat_rows, stage_blocks, trace_taped
+    from ray_tracing_tpu_torch.render.prb import _grad_rows
+    from ray_tracing_tpu_torch.render.prb_tape import sweep_segments, trace_taped
 
-    rad, _, tape = trace_taped(scene, ro[:TILE], rd[:TILE], k_trace, DEPTH)
+    rad, _, tape = trace_taped(scene, ro[:TILE], rd[:TILE], k_trace, depth)
     g = torch.full_like(rad, 1.0 / (ro.shape[0] * 3))
-    rows = []
-    for block in stage_blocks(tape, rad, g):
-        _, texel, _, flags, contrib = _flat_rows(*block)
-        rows.append((texel, contrib, (flags & F_IMAGE) != 0))
-    return rows
+    return sweep_segments(scene, tape, rad, g), sum(_grad_rows(scene))
 
 
 def motion_rays(n: int, seed: int):
@@ -323,7 +358,7 @@ def motion_rays(n: int, seed: int):
                  for x in (ro, rd, r.uniform(0.0, 1.0, n)))
 
 
-def grad_pass(params, scene, ro, rd, k_trace, tile_loss, tile: int = TILE):
+def grad_pass(params, scene, ro, rd, k_trace, tile_loss, depth: int = DEPTH, tile: int = TILE):
     """One full-parameter fwd+bwd pass with the protocol of bench.py:172-231:
     tiles under one trace key with ids_base, prb_loss_and_grad_all(...,
     defer_scalars=True) per tile, one global scalar_tangent_pass.  The
@@ -344,7 +379,7 @@ def grad_pass(params, scene, ro, rd, k_trace, tile_loss, tile: int = TILE):
         rows = slice(start, min(start + tile, n))
         l_i, g_i, (rad, g_ray, touched) = prb_loss_and_grad_all(
             lambda r, _rows=rows: tile_loss(r, _rows), params, scene, ro[rows], rd[rows],
-            k_trace, DEPTH, ids_base=start, defer_scalars=True,
+            k_trace, depth, ids_base=start, defer_scalars=True,
         )
         loss = loss + l_i
         grads = g_i if grads is None else AllParams(*(a + b for a, b in zip(grads, g_i)))
@@ -352,14 +387,14 @@ def grad_pass(params, scene, ro, rd, k_trace, tile_loss, tile: int = TILE):
         gcs.append(g_ray)
         touches.append(touched)
     gfuzz, gir = scalar_tangent_pass(
-        params, scene, ro, rd, k_trace, DEPTH, torch.cat(rads), torch.cat(gcs) * scale,
+        params, scene, ro, rd, k_trace, depth, torch.cat(rads), torch.cat(gcs) * scale,
         torch.cat(touches), tangent_cap=65536,
     )
     grads = AllParams(*(x * scale for x in grads))._replace(fuzz=gfuzz, ir=gir)
     return loss * scale, grads
 
 
-def split_pass(params, scene, ro, rd, k_trace, tile: int = TILE):
+def split_pass(params, scene, ro, rd, k_trace, depth: int = DEPTH, tile: int = TILE):
     """The same pass as grad_pass with the loss torch.sum, built from its
     pieces so that CUDA events split it: (taped forward ms, sweep ms,
     tangent pass ms)."""
@@ -375,7 +410,7 @@ def split_pass(params, scene, ro, rd, k_trace, tile: int = TILE):
         rows = slice(start, min(start + tile, n))
         e0, e1, e2 = ev(), ev(), ev()
         e0.record()
-        rad, touched, tape = trace_taped(s, ro[rows], rd[rows], k_trace, DEPTH, ids_base=start)
+        rad, touched, tape = trace_taped(s, ro[rows], rd[rows], k_trace, depth, ids_base=start)
         e1.record()
         tape_sweep(s, tape, rad, torch.ones_like(rad))
         e2.record()
@@ -386,7 +421,7 @@ def split_pass(params, scene, ro, rd, k_trace, tile: int = TILE):
     e3, e4 = ev(), ev()
     e3.record()
     rad = torch.cat(rads)
-    scalar_tangent_pass(params, scene, ro, rd, k_trace, DEPTH, rad, torch.ones_like(rad),
+    scalar_tangent_pass(params, scene, ro, rd, k_trace, depth, rad, torch.ones_like(rad),
                         torch.cat(touches), tangent_cap=65536)
     e4.record()
     torch.cuda.synchronize()
@@ -394,14 +429,62 @@ def split_pass(params, scene, ro, rd, k_trace, tile: int = TILE):
     return total(fwd), total(sweep), e3.elapsed_time(e4)
 
 
-def image_mean(scene, camera, key) -> float:
-    """Mean of the 1024x1024 depth-20 zy image at ``key`` (forward only,
-    the tiles and ray ids of grad_pass), summed in float64."""
+def image_mean(scene, camera, key, size: int = SIZE, depth: int = DEPTH) -> float:
+    """Mean of the size x size image at ``key`` by the renderer's own
+    entry (render_pass: its own camera rays, the tiles and ray ids of
+    grad_pass), summed in float64."""
     from ray_tracing_tpu_torch.render.renderer import render_pass
 
-    img = render_pass(scene, camera, key, width=SIZE, height=SIZE, max_depth=DEPTH,
+    img = render_pass(scene, camera, key, width=size, height=size, max_depth=depth,
                       antialias=True, tile_size=TILE)
     return float(img.double().sum()) / img.numel()
+
+
+def traced_segments(scene, ro, rd, k_trace, depth: int = DEPTH) -> int:
+    """The segments traced for the rays (ro, rd) with the tiles and ray
+    ids of grad_pass, forward only.  At a fixed key the paths do not
+    depend on colors, so they are those of every pass at this key,
+    counted as bench.py counts them."""
+    from ray_tracing_tpu_torch.render.integrator import trace_compacted
+
+    return sum(int(trace_compacted(scene, ro[s:s + TILE], rd[s:s + TILE], k_trace, depth,
+                                   with_stats=True, ids_base=s)[1])
+               for s in range(0, ro.shape[0], TILE))
+
+
+def timed_renders(renderer, keys):
+    """renderer.render(k) for each key, the second and later ones timed
+    with CUDA events (the first is the warm-up); returns (images, ms)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    images, pass_ms = [renderer.render(keys[0])], []
+    for key in keys[1:]:
+        start.record()
+        images.append(renderer.render(key))
+        end.record()
+        torch.cuda.synchronize()
+        pass_ms.append(start.elapsed_time(end))
+    return images, pass_ms
+
+
+def repeat_report(tag: str, loss, grads, loss2, grads2) -> dict:
+    """Print whether a second pass at the same key repeats the loss and
+    each gradient leaf bit for bit (and by how much it differs where it
+    does not); check the loss.  Returns {leaf: torch.equal}."""
+    import torch
+    from ray_tracing_tpu_torch.render.prb_scalar import AllParams
+
+    equal = {f: bool(torch.equal(getattr(grads2, f), getattr(grads, f)))
+             for f in AllParams._fields}
+    rel = {f: float((getattr(grads2, f) - getattr(grads, f)).abs().max()
+                    / getattr(grads, f).abs().max().clamp_min(1e-30))
+           for f in AllParams._fields if not equal[f]}
+    print(f"[{tag}] second pass, same key: loss equal {bool(torch.equal(loss, loss2))}; "
+          f"gradients torch.equal per leaf {equal}; max |d| / max |g| of the others {rel} "
+          f"(color, images and metal albedo: K2, in row order)")
+    check(bool(torch.equal(loss, loss2)), "the loss repeats at the same key")
+    return equal
 
 
 def gradient_phases(scene, bundle, smi: str) -> dict:
@@ -439,10 +522,10 @@ def gradient_phases(scene, bundle, smi: str) -> dict:
     unique[live] = r.permutation(p_texels)[: int(live.sum())]
     k2_err = max(k2_err, compare_k2(cs, p_texels, [(torch.from_numpy(unique.astype(np.int32)).to(dev),
                                                     contrib, mask)], "the same rows, no duplicates"))
-    tile_rows = zy_tile_rows(scene, ro, rd, k_trace)
+    tile_rows, p_table = tile_segments(scene, ro, rd, k_trace, DEPTH)
     for stage, rows_s in enumerate(tile_rows):
-        k2_err = max(k2_err, compare_k2(cs, p_texels, [rows_s], f"zy tile 0 sweep stage {stage}"))
-    k2_err = max(k2_err, compare_k2(cs, p_texels, tile_rows,
+        k2_err = max(k2_err, compare_k2(cs, p_table, [rows_s], f"zy tile 0 sweep stage {stage}"))
+    k2_err = max(k2_err, compare_k2(cs, p_table, tile_rows,
                                     "zy tile 0 sweep, its stages in one call"))
     n_tile = sum(t.shape[0] for t, _, _ in tile_rows)
     all_live = (torch.from_numpy(np.where(r.rand(n_tile) < 0.5, r.randint(0, 1024, n_tile),
@@ -473,6 +556,7 @@ def gradient_phases(scene, bundle, smi: str) -> dict:
     check(ci.LAUNCHES > 0 and cs.LAUNCHES > 0, "the gradient path launched K1 and K2")
     mean0 = image_mean(scene, cam, key)
     check(abs(mean0 - float(loss)) <= 1e-5 * mean0, "the gradient pass's loss is the image mean")
+    segments = traced_segments(scene, ro, rd, k_trace)
 
     # colors against a central difference: at a fixed key the paths do not
     # depend on colors, so the image mean is a polynomial in them
@@ -485,17 +569,16 @@ def gradient_phases(scene, bundle, smi: str) -> dict:
           f"rel err {abs(fd - gd) / abs(gd)!r}")
     check(abs(fd - gd) <= 1e-2 * abs(gd), "color gradient matches the central difference, rtol 1e-2")
 
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     loss2, grads2 = grad_pass(params, scene, ro, rd, k_trace, lambda rad, rows: torch.sum(rad))
-    rel = {f: float((getattr(grads2, f) - getattr(grads, f)).abs().max()
-                    / getattr(grads, f).abs().max()) for f in AllParams._fields}
-    equal = {f: bool(torch.equal(getattr(grads2, f), getattr(grads, f)))
-             for f in AllParams._fields}
-    print(f"[7] second pass, same key: loss equal {bool(torch.equal(loss, loss2))}; gradients "
-          f"torch.equal per leaf {equal}; max |d| / max |g| per leaf {rel} (images: K2, "
-          f"deterministic; color and metal albedo: index_add_ on the card, atomics)")
-    check(bool(torch.equal(loss, loss2)), "the loss repeats at the same key")
-    check(equal["images"], "the images gradient (K2) repeats bit for bit")
-    for f in AllParams._fields:
+    end.record()
+    torch.cuda.synchronize()
+    pass_ms = [start.elapsed_time(end)]  # phase 8's first timing
+    equal = repeat_report("7", loss, grads, loss2, grads2)
+    for f in COLOR_LINEAR:
+        check(equal[f], f"the {f} gradient (K2) repeats bit for bit")
+    for f in ("fuzz", "ir"):
         check(torch.allclose(getattr(grads2, f), getattr(grads, f), rtol=1e-4, atol=1e-8),
               f"{f} gradient repeats to rtol 1e-4")
 
@@ -535,22 +618,16 @@ def gradient_phases(scene, bundle, smi: str) -> dict:
           f"{params.fuzz[is_metal].tolist()}), ir {fit.ir[params.ir > 1].tolist()} "
           f"(true {params.ir[params.ir > 1].tolist()})")
 
-    # 8. timings, CUDA events after the warm-up above; the segments of the
-    # pass, counted untimed on the same keys (bench.py:253-273)
-    from ray_tracing_tpu_torch.render.integrator import trace_compacted
-
-    segments = sum(int(trace_compacted(scene, ro[s:s + TILE], rd[s:s + TILE], k_trace, DEPTH,
-                                       with_stats=True, ids_base=s)[1]) for s in range(0, n, TILE))
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    pass_ms = []
-    for _ in range(2):
-        start.record()
-        grad_pass(params, scene, ro, rd, k_trace, lambda rad, rows: torch.sum(rad))
-        end.record()
-        torch.cuda.synchronize()
-        pass_ms.append(start.elapsed_time(end))
+    # 8. timings, CUDA events after the warm-up above (the second pass of
+    # phase 7 and one more); the segments of the pass were counted untimed
+    # on the same keys in phase 7 (bench.py:253-273)
+    start.record()
+    grad_pass(params, scene, ro, rd, k_trace, lambda rad, rows: torch.sum(rad))
+    end.record()
+    torch.cuda.synchronize()
+    pass_ms.append(start.elapsed_time(end))
     fwd_ms, sweep_ms, tangent_ms = split_pass(params, scene, ro, rd, k_trace)
-    k2 = time_k2(cs, p_texels, tile_rows, dev)
+    k2 = time_k2(cs, p_table, tile_rows, dev, "8", "zy")
     tile_wall, tile_dev = profile_device(
         lambda: grad_pass(params, scene, ro[:TILE], rd[:TILE], k_trace,
                           lambda rad, rows: torch.sum(rad)))
@@ -576,10 +653,11 @@ def gradient_phases(scene, bundle, smi: str) -> dict:
 
 
 def k2_bound(cs, segments):
-    """bound() of K2 over these rows: each row's mask byte, the texel of
-    each masked row (4 B), the contribution of each live row (12 B) and
-    each touched texel's three sums read and written (24 B); three adds
-    per live row."""
+    """bound() of K2 over these rows: each row's mask byte, the table row
+    of each masked row (4 B), the contribution of each live row (12 B) and
+    each touched row's three sums read and written (24 B); three adds per
+    live row.  The rows go into the one table [gimg | gcol | gmet], so the
+    color and metal-albedo rows count as the texels do."""
     import torch
 
     rows = sum(t.shape[0] for t, _, _ in segments)
@@ -589,7 +667,7 @@ def k2_bound(cs, segments):
     return bound(3 * live.numel(), rows + 4 * masked + 12 * live.numel() + 24 * touched)
 
 
-def time_k2(cs, p: int, segments, dev) -> dict:
+def time_k2(cs, p: int, segments, dev, tag: str, scene_name: str) -> dict:
     """K2 on one tile's sweep rows (one call) against its plain version
     on the card, index_add_ and the deterministic index_put_ (one call
     each, on the live rows selected beforehand) and the empty kernel:
@@ -637,16 +715,16 @@ def time_k2(cs, p: int, segments, dev) -> dict:
     cs.LAUNCHES = before
     bnd = k2_bound(cs, segments)
     n_rows = sum(t.shape[0] for t, _, _ in segments)
-    print(f"[8] K2 on one zy tile's sweep rows ({len(segments)} segments in one call, "
-          f"{n_rows} rows, {idx.numel()} live, {int(torch.unique(idx).numel())} texels "
-          f"touched): bound {bnd[0]!r} ms by {bnd[1]}")
+    print(f"[{tag}] K2 on one {scene_name} tile's sweep rows ({len(segments)} segments in one "
+          f"call, {n_rows} rows, {idx.numel()} live, {int(torch.unique(idx).numel())} of {p} "
+          f"table rows touched): bound {bnd[0]!r} ms by {bnd[1]}")
     out = {"bound": bnd}
     for name in calls:
         ev = sum(events[name]) / len(events[name])
         share = (f", share {bnd[0] / device[name]:.4f} of the bound"
                  if isinstance(device[name], float) and name == "kernel" else "")
-        print(f"[8]   {name}: events {events[name]!r} ms (in turns), device {device[name]!r} "
-              f"ms per call{share}")
+        print(f"[{tag}]   {name}: events {events[name]!r} ms (in turns), device "
+              f"{device[name]!r} ms per call{share}")
         out[name] = (ev, device[name])
     return out
 
@@ -775,7 +853,7 @@ def scene_json_phases(smi: str) -> dict:
                         bundle.scene, device="cuda")
     reset_counts()
     t0 = time.perf_counter()
-    images = [renderer.render(k) for k in range(3)]
+    images, pass_ms = timed_renders(renderer, range(3))  # phase 13's timings
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = {"k1": ci.LAUNCHES, "k3": ci.TF_LAUNCHES, "k5": ct.LAUNCHES}
@@ -810,15 +888,8 @@ def scene_json_phases(smi: str) -> dict:
     check(torch.equal(on_card, on_cpu),
           "scene.json depth-1 image on the card equals the CPU render")
 
-    # 13. timings
+    # 13. timings (the passes: phase 11's renders 1 and 2)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    pass_ms = []
-    for key in (10, 11):
-        start.record()
-        renderer.render(key)
-        end.record()
-        torch.cuda.synchronize()
-        pass_ms.append(start.elapsed_time(end))
     start.record()
     _, segments = renderer.render_with_stats(20)
     end.record()
@@ -926,6 +997,22 @@ def phase_a_bound(ci, tables, n: int):
                              + transforms(tables.rect, tables.rect_tf)))
     table_bytes = 4 * (tables.sph.numel() + tables.rect.numel() + tables.slots.numel())
     return bound(n * per_ray, n * (36 + (4 if motion else 0)) + table_bytes)
+
+
+def time_k1(ci, tables, ro, rd):
+    """K1 on one tile against its plain version: CUDA-event ms per call in
+    turns (plain, kernel, kernel, plain) and torch.profiler device traces
+    of 20 calls each.  Returns (kernel ms, plain ms, kernel device trace,
+    plain device trace, bound); the launches do not count."""
+    args = (tables, ro, rd, 1e-3, float("inf"))
+    before = ci.LAUNCHES
+    plain_ms = [cuda_ms(lambda: ci.phase_a_plain(*args), 50)]
+    kernel_ms = [cuda_ms(lambda: ci.phase_a_cuda(*args), 200) for _ in range(2)]
+    plain_ms.append(cuda_ms(lambda: ci.phase_a_plain(*args), 50))
+    _, k_dev = profile_device(lambda: [ci.phase_a_cuda(*args) for _ in range(20)])
+    _, p_dev = profile_device(lambda: [ci.phase_a_plain(*args) for _ in range(20)])
+    ci.LAUNCHES = before
+    return kernel_ms, plain_ms, k_dev, p_dev, phase_a_bound(ci, tables, ro.shape[0])
 
 
 def launch_floor(cs, tag: str):
@@ -1164,6 +1251,11 @@ def bunny_grid_phases(smi: str) -> dict:
     s_ro, s_rd = secondary_rays(tr, ro, rd, *cam_hit, TILE, 0)
     k6_err = max(k6_err, compare_k6(ct, tr, s_ro, s_rd, f"{TILE} secondary rays from the mesh "
                                     "hits (seed 0)", dense=True)[0])
+    # K1 on C6's own table (its ground rect) at the shapes the C6 paths
+    # give it: the camera rays and the secondary rays off the bunnies
+    k1_err = compare_k1(ci, scene.phase_a, ro, rd, f"{C6_SIZE}^2 C6 camera rays", "15")
+    k1_err = max(k1_err, compare_k1(ci, scene.phase_a, s_ro, s_rd,
+                                    f"{TILE} C6 secondary rays (seed 0)", "15"))
     copies = scenes.bunny_copies(27).to(dev).triangles
     check(copies.sw_aabb.shape[0] > 1024, "27 copies pass 1024 clusters")
     c_ro, c_rd = copies_rays(TILE, 2)
@@ -1201,9 +1293,13 @@ def bunny_grid_phases(smi: str) -> dict:
     k6 = time_sweep_tiles(ct, tr, ct.cluster_sweep_cuda, "cluster_sweep_kernel", (
         (f"C6 camera-ray tile {busiest}", ro[tile].contiguous(), rd[tile].contiguous()),
         ("the C6 secondary tile", s_ro, s_rd)), "19")
+    # K7's case: 1,048 clusters, more than one 512-cluster list page
+    time_sweep_tiles(ct, copies, ct.cluster_sweep_cuda, "cluster_sweep_kernel",
+                     (("the 27-bunny tile (K7's case)", c_ro, c_rd),), "19")
     k6_plain.append(cuda_ms(plain, 2))
     plain_dev = profile_pair(lambda: ct.cluster_sweep_cuda(*k6_args), plain, 2,
                              "cluster_sweep_kernel")[1]
+    k1_ms, k1_plain, k1_dev, k1_pdev, k1_bound = time_k1(ci, scene.phase_a, s_ro, s_rd)
     small_renderer = Renderer(RendererParam(128, 128), cam_param, host_scene, device="cuda")
     small_renderer.render(30)
     pass_wall, pass_dev = profile_device(lambda: small_renderer.render(31))
@@ -1214,13 +1310,200 @@ def bunny_grid_phases(smi: str) -> dict:
           f"render_with_stats: {segments} segments, {seg_s!r} segments/s")
     print(f"[19] K6's plain version on the secondary tile: {k6_plain!r} ms by events (before and "
           f"after the kernel's timings), {plain_dev!r} ms device (torch.profiler)")
+    print(f"[19] K1 on C6's table ({scene.phase_a.rect.shape[0]} rect, "
+          f"{scene.phase_a.sph.shape[0]} spheres), the secondary tile: kernel {k1_ms!r} ms, plain "
+          f"{k1_plain!r} ms (plain, kernel, kernel, plain); device per call kernel "
+          f"{per_launch(k1_dev)!r} ms, plain "
+          f"{sum(ms for _, ms in k1_pdev.values()) / 20 if k1_pdev else 'not measured'!r} ms; "
+          f"bound {k1_bound[0]!r} ms by {k1_bound[1]}")
     busy_share(pass_dev, pass_wall, "19", f"128^2 depth-{small_renderer.max_depth} C6 pass")
     share = kernel_share(pass_dev, "cluster_sweep_kernel")
     if share:
         print(f"[19] K6 in that pass: {share[0]!r} ms in {share[1]} launches, {share[2]!r} of "
               f"device busy")
     return dict(launches=launches, k6_err=k6_err, k6_ms=k6_ms,
-                k6_plain_ms=sum(k6_plain) / 2, k6_bound=k6_bound)
+                k6_plain_ms=sum(k6_plain) / 2, k6_bound=k6_bound, k1_err=k1_err,
+                k1_ms=sum(k1_ms) / 2, k1_plain_ms=sum(k1_plain) / 2, k1_bound=k1_bound)
+
+
+def fwd_bwd_path(label: str, tag: str, scene, cam, size: int, depth: int, smi: str, *,
+                 sj: bool) -> dict:
+    """The full-parameter fwd+bwd of a scene with triangles at its own
+    size and depth (grad_pass: 65,536-ray tiles under one key, one
+    tangent pass; loss = image mean), driven with every count at 0 just
+    before, its checks, a second pass at the same key, and its timings.
+    ``sj`` marks scene.json: every leaf nonzero, K3 and K5 launched, the
+    fog's albedo row live, the colors against a central difference.
+    Otherwise (C6) K6 and not K5.  Returns the numbers the kernel record
+    needs."""
+    import torch
+    from ray_tracing_tpu_torch.models.camera import camera_rays
+    from ray_tracing_tpu_torch.models.scene import MAT_ISOTROPIC
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import cuda_scatter as cs
+    from ray_tracing_tpu_torch.ops import cuda_triangles as ct
+    from ray_tracing_tpu_torch.ops import rng
+    from ray_tracing_tpu_torch.render.prb_scalar import AllParams, _with_all, params_of
+
+    n = size * size
+    tiles = -(-n // TILE)
+    key = rng.key(0)
+    ro, rd, _, k_trace = camera_rays(cam, key, size, size, True)
+    params = params_of(scene)
+    mean_loss = lambda rad, rows: torch.sum(rad)
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, grads = grad_pass(params, scene, ro, rd, k_trace, mean_loss, depth)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"k1": ci.LAUNCHES, "k2": cs.LAUNCHES, "k3": ci.TF_LAUNCHES, "k5": ct.LAUNCHES,
+                "k6": ct.CL_LAUNCHES}
+    norms = {f: float(torch.linalg.vector_norm(getattr(grads, f))) for f in AllParams._fields}
+    print(f"[{tag}] {label} {size}^2 depth {depth} fwd+bwd ({tiles} tiles of {TILE}, one tangent "
+          f"pass): loss {float(loss)!r} in {wall:.2f} s; launches {launches}; gradient norms "
+          f"{norms}")
+    check(cs.LAUNCHES == tiles, f"{label}: K2 is called once per tile")
+    if sj:
+        check(ci.TF_LAUNCHES > 0 and ct.LAUNCHES > 0, "the scene.json fwd+bwd launched K3 and K5")
+    else:
+        check(ct.CL_LAUNCHES > 0 and ct.LAUNCHES == 0, "the C6 fwd+bwd launched K6 and not K5")
+    for f in AllParams._fields:
+        g = getattr(grads, f)
+        check(g.shape == getattr(params, f).shape, f"{label} {f} gradient shape")
+        check(bool(torch.isfinite(g).all()), f"{label} {f} gradient finite")
+        check(norms[f] > 0.0 or not (sj or f == "color"), f"{label} {f} gradient nonzero")
+    mean0 = image_mean(scene, cam, key, size, depth)
+    print(f"[{tag}] image mean by render_pass {mean0!r}, loss {float(loss)!r}")
+    check(abs(mean0 - float(loss)) <= 1e-5 * mean0, f"{label}: the loss is the image mean")
+    if sj:
+        mat = scene.materials
+        fog = mat.tex[mat.mtype == MAT_ISOTROPIC].long()
+        fog_row = grads.color[fog]
+        print(f"[{tag}] the fog's isotropic albedo row {fog.tolist()}: {fog_row.tolist()}")
+        check(bool((fog_row != 0).any()), "the fog's albedo gradient is nonzero")
+        d = grads.color / torch.linalg.vector_norm(grads.color)
+        eps = 1e-2
+        at = lambda c: image_mean(_with_all(scene, params._replace(color=c)), cam, key, size,
+                                  depth)
+        fd = (at(params.color + eps * d) - at(params.color - eps * d)) / (2 * eps)
+        gd = float((grads.color * d).sum())
+        print(f"[{tag}] color gradient along g/|g|: g.d {gd!r}, central difference (eps {eps}) "
+              f"{fd!r}, rel err {abs(fd - gd) / abs(gd)!r}")
+        check(abs(fd - gd) <= 1e-2 * abs(gd),
+              f"{label} color gradient matches the central difference, rtol 1e-2")
+
+    # the second pass at the same key, timed
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss2, grads2 = grad_pass(params, scene, ro, rd, k_trace, mean_loss, depth)
+    end.record()
+    torch.cuda.synchronize()
+    pass_ms = [start.elapsed_time(end)]
+    equal = repeat_report(tag, loss, grads, loss2, grads2)
+    for f in COLOR_LINEAR:
+        check(equal[f], f"{label}: the {f} gradient (K2) repeats bit for bit")
+    unequal = [f for f in ("fuzz", "ir") if not equal[f]]
+    if unequal:  # hold them to the card's own noise floor between two keys
+        _, other = grad_pass(params, scene, ro, rd, camera_rays(cam, rng.key(1), size, size,
+                                                                  True)[3], mean_loss, depth)
+        for f in unequal:
+            a, b, c = (getattr(x, f) for x in (grads, grads2, other))
+            matched, floor = float((a - b).abs().sum()), float((a - c).abs().sum())
+            print(f"[{tag}] {f}: same-key difference {matched!r}, two-key difference {floor!r}")
+            check(floor > 0 and matched <= 0.6 * floor, f"{label} {f} repeats inside the noise")
+
+    # timings: segments counted untimed (bench.py:253-273), the split, K2,
+    # one profiled tile
+    segments = traced_segments(scene, ro, rd, k_trace, depth)
+    saved = dict(launches)
+    fwd_ms, sweep_ms, tangent_ms = split_pass(params, scene, ro, rd, k_trace, depth)
+    rows, p_table = tile_segments(scene, ro, rd, k_trace, depth)
+    k2_err = compare_k2(cs, p_table, rows, f"{label} tile 0 sweep, its stages in one call "
+                        f"(table [gimg | gcol | gmet] of {p_table} rows)", tag)
+    k2 = time_k2(cs, p_table, rows, dev=ro.device, tag=tag, scene_name=label)
+    tile_wall, tile_dev = profile_device(
+        lambda: grad_pass(params, scene, ro[:TILE], rd[:TILE], k_trace, mean_loss, depth))
+    mean_ms = sum(pass_ms) / len(pass_ms)
+    print(f"[{tag}] card: {smi}")
+    print(f"[{tag}] ms per {label} {size}^2 depth-{depth} fwd+bwd pass: {pass_ms!r}; "
+          f"{segments} traced segments (counted untimed, bench.py's unit): "
+          f"{segments / (mean_ms / 1e3)!r} segments/s; {size}^2 rays/s {n / (mean_ms / 1e3)!r}")
+    print(f"[{tag}] split of one pass: taped forward {fwd_ms!r} ms, sweep {sweep_ms!r} ms, "
+          f"tangent pass {tangent_ms!r} ms")
+    busy_share(tile_dev, tile_wall, tag, f"{label} fwd+bwd of one {TILE}-ray tile")
+    return dict(launches=saved, k2_err=k2_err, k2_ms=k2["kernel"][0],
+                k2_plain_ms=k2["plain"][0], k2_library_ms=k2["index_add_"][0],
+                k2_bound=k2["bound"])
+
+
+def grad_path_phases(smi: str) -> dict:
+    """Phases 21 and 22: the full-parameter fwd+bwd of data/scene.json at
+    800^2 depth 50 (K2, K3, K5) and of C6 at 512^2 depth 20 (K2, K6), with
+    their checks and timings."""
+    import torch
+    from ray_tracing_tpu_torch import load_scene_json, scenes
+    from ray_tracing_tpu_torch.models.camera import Camera
+
+    dev = torch.device("cuda")
+    bundle = load_scene_json(os.path.join(ROOT, "data", "scene.json"))
+    sj = fwd_bwd_path("scene.json", "21", bundle.scene.to(dev),
+                      Camera.build(bundle.camera, 1.0).to(dev), SJ_SIZE, SJ_DEPTH, smi, sj=True)
+    host_scene, cam_param, _ = scenes.bunny_grid()
+    c6 = fwd_bwd_path("C6", "22", host_scene.to(dev), Camera.build(cam_param, 1.0).to(dev),
+                      C6_SIZE, DEPTH, smi, sj=False)
+    return {"sj": sj, "c6": c6}
+
+
+def tie_scene(other: str):
+    """A triangle in the plane z = -2 and, at the same t = 2 along -z from
+    the origin, a rect in that plane or a sphere touching it (the scenes
+    of tests/test_torch_prb_scene.py:test_kind_order_follows_the_tpu)."""
+    from ray_tracing_tpu_torch import SceneBuilder
+
+    b = SceneBuilder()
+    m = [b.add_lambertian(b.add_texture_solid((0.1 * i, 0.5, 0.5))) for i in range(1, 3)]
+    b.add_triangle([[-1.0, -1.0, -2.0], [3.0, -1.0, -2.0], [-1.0, 3.0, -2.0]], m[0])
+    if other == "rect":
+        b.add_rect("xy", -1, 1, -1, 1, -2.0, m[1], positive=True)
+    else:
+        b.add_sphere((0.0, 0.0, -3.0), 1.0, m[1])
+    return b.build()
+
+
+def kind_order_phase() -> None:
+    """Phase 23: at an equal t the TPU's kind order decides on the card as
+    on the CPU: a rect (K1) and a sphere (K1) win over a triangle (K5),
+    which wins off them."""
+    import torch
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import cuda_triangles as ct
+    from ray_tracing_tpu_torch.ops.intersect import (
+        KIND_RECT,
+        KIND_SPHERE,
+        KIND_TRIANGLE,
+        intersect_scene,
+    )
+
+    dev = torch.device("cuda")
+    ro = torch.tensor([[0.0, 0.0, 0.0], [0.25, -0.5, 0.0], [1.5, -0.5, 0.0]], device=dev)
+    rd = torch.tensor([[0.0, 0.0, -1.0]] * 3, device=dev)
+    saved = (ci.LAUNCHES, ct.LAUNCHES)
+    for other, want in (("rect", KIND_RECT), ("sphere", KIND_SPHERE)):
+        scene = tie_scene(other).to(dev)
+        t_tri = ct.triangle_sweep(scene.triangles, ro, rd, 1e-3, float("inf"))[0]
+        before = (ci.LAUNCHES, ct.LAUNCHES)
+        hit = intersect_scene(scene, ro, rd, 1e-3, float("inf"))
+        launched = (ci.LAUNCHES - before[0], ct.LAUNCHES - before[1])
+        tied = [0, 1] if other == "rect" else [0]
+        print(f"[23] {other} and triangle: triangle t {t_tri.tolist()}, winner t "
+              f"{hit.t.tolist()}, kind {hit.kind.tolist()} (K1, K5 launches {launched})")
+        check(launched == (1, 1), "the tie ran K1 and K5")
+        check(t_tri.tolist() == [2.0] * 3 and all(float(hit.t[i]) == 2.0 for i in tied),
+              f"{other} and triangle tie at t = 2")
+        check(hit.kind[tied].tolist() == [want] * len(tied),
+              f"the {other} wins the tie with the triangle on the card (the TPU's order)")
+        check(int(hit.kind[2]) == KIND_TRIANGLE, "the triangle wins off the other primitive")
+    ci.LAUNCHES, ct.LAUNCHES = saved
 
 
 def busy_share(pass_dev, pass_wall: float, tag: str, what: str) -> None:
@@ -1396,6 +1679,7 @@ def main() -> int:
     from ray_tracing_tpu_torch.ops import rng
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s) visible, this run uses cuda:0")
@@ -1435,7 +1719,7 @@ def main() -> int:
     renderer = Renderer(param, bundle.camera, bundle.scene, device="cuda")
     reset_counts()
     t0 = time.perf_counter()
-    images = [renderer.render(k) for k in range(4)]
+    images, pass_ms = timed_renders(renderer, range(4))  # phase 5's timings
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = ci.LAUNCHES
@@ -1471,34 +1755,19 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    pass_ms = []
-    for key in (10, 11, 12):  # warm: phase 3 ran the same path
-        start.record()
-        renderer.render(key)
-        end.record()
-        torch.cuda.synchronize()
-        pass_ms.append(start.elapsed_time(end))
     start.record()
     _, segments = renderer.render_with_stats(20)
     end.record()
     torch.cuda.synchronize()
     stats_s = start.elapsed_time(end) / 1e3
-    args = (tables, tile_ro, tile_rd, 1e-3, float("inf"))
-    before = ci.LAUNCHES
-    plain_ms = [cuda_ms(lambda: ci.phase_a_plain(*args), 50)]
-    kernel_ms = [cuda_ms(lambda: ci.phase_a_cuda(*args), 200) for _ in range(2)]
-    plain_ms.append(cuda_ms(lambda: ci.phase_a_plain(*args), 50))
-    _, k_dev = profile_device(lambda: [ci.phase_a_cuda(*args) for _ in range(20)])
-    _, p_dev = profile_device(lambda: [ci.phase_a_plain(*args) for _ in range(20)])
-    ci.LAUNCHES = before
+    kernel_ms, plain_ms, k_dev, p_dev, k1_bound = time_k1(ci, tables, tile_ro, tile_rd)
     k_ms, p_ms = sum(kernel_ms) / 2, sum(plain_ms) / 2
-    k1_bound = phase_a_bound(ci, tables, 65536)
     launch_floor(cs, "5")
     small_renderer = Renderer(small, bundle.camera, bundle.scene, device="cuda")
     small_renderer.render(30)
     pass_wall, pass_dev = profile_device(lambda: small_renderer.render(31))
     print(f"[5] card: {smi}")
-    print(f"[5] ms per 1024^2 depth-20 pass: {pass_ms!r} (mean {sum(pass_ms) / 3!r})")
+    print(f"[5] ms per 1024^2 depth-20 pass: {pass_ms!r} (mean {sum(pass_ms) / len(pass_ms)!r})")
     print(f"[5] render_with_stats: {segments} segments in {stats_s!r} s = "
           f"{segments / stats_s!r} segments/s")
     print(f"[5] K1 on a 65536-ray tile: kernel {kernel_ms!r} ms, plain {plain_ms!r} ms "
@@ -1518,11 +1787,22 @@ def main() -> int:
     else:
         print("[5] torch.profiler saw no device time: device share not measured")
 
-    grad = gradient_phases(scene, bundle, smi)
-    sj = scene_json_phases(smi)
-    c6 = bunny_grid_phases(smi)
-    mb = motion_phases(smi)
-    large_err = large_table_phase(ci)
+    print(f"[time] phases 1-5: {time.perf_counter() - t_start:.1f} s")
+
+    def timed(what: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] {what}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    grad = timed("phases 6-8 (zy fwd+bwd)", gradient_phases, scene, bundle, smi)
+    sj = timed("phases 9-13 (scene.json forward)", scene_json_phases, smi)
+    c6 = timed("phases 15, 16, 19 (C6 forward)", bunny_grid_phases, smi)
+    mb = timed("phases 17-19 (motion forward)", motion_phases, smi)
+    large_err = timed("phase 20 (large tables)", large_table_phase, ci)
+    paths = timed("phases 21-22 (scene.json and C6 fwd+bwd)", grad_path_phases, smi)
+    sjg, c6g = paths["sj"], paths["c6"]
+    timed("phase 23 (kind order)", kind_order_phase)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"ray_tracing_tpu_torch/csrc/{source}",
@@ -1551,8 +1831,28 @@ def main() -> int:
               "ray_tracing_tpu/ops/pallas_intersect.py:127", mb["launches"]["k4"],
               max(mb["k4_err"], large_err),
               mb["k4_ms"], mb["k4_plain_ms"], mb["k4_bound"]),
+        entry("phase_a (K1), C6 forward render", *k1, c6["launches"]["k1"], c6["k1_err"],
+              c6["k1_ms"], c6["k1_plain_ms"], c6["k1_bound"]),
         entry("cluster_sweep (K6, serving K7's case), C6 forward render", "triangles.cu",
               "ray_tracing_tpu/ops/pallas_triangles.py:364 and :287", c6["launches"]["k6"],
+              c6["k6_err"], c6["k6_ms"], c6["k6_plain_ms"], c6["k6_bound"]),
+        # this slice's paths: the fwd+bwd of scene.json and of C6
+        entry("scatter_add (K2), scene.json fwd+bwd", "scatter.cu",
+              "ray_tracing_tpu/ops/pallas_scatter.py:82", sjg["launches"]["k2"], sjg["k2_err"],
+              sjg["k2_ms"], sjg["k2_plain_ms"], sjg["k2_bound"], sjg["k2_library_ms"]),
+        entry("phase_a transformed (K3), scene.json fwd+bwd", "intersect.cu", intersect,
+              sjg["launches"]["k3"], max(sj["k3_err"], large_err), sj["k3_ms"],
+              sj["k3_plain_ms"], sj["k3_bound"]),
+        entry("triangle_sweep (K5), scene.json fwd+bwd", "triangles.cu",
+              "ray_tracing_tpu/ops/pallas_triangles.py:147", sjg["launches"]["k5"], sj["k5_err"],
+              sj["k5_ms"], sj["k5_plain_ms"], sj["k5_bound"]),
+        entry("phase_a (K1), C6 fwd+bwd", *k1, c6g["launches"]["k1"], c6["k1_err"], c6["k1_ms"],
+              c6["k1_plain_ms"], c6["k1_bound"]),
+        entry("scatter_add (K2), C6 fwd+bwd", "scatter.cu",
+              "ray_tracing_tpu/ops/pallas_scatter.py:82", c6g["launches"]["k2"], c6g["k2_err"],
+              c6g["k2_ms"], c6g["k2_plain_ms"], c6g["k2_bound"], c6g["k2_library_ms"]),
+        entry("cluster_sweep (K6, serving K7's case), C6 fwd+bwd", "triangles.cu",
+              "ray_tracing_tpu/ops/pallas_triangles.py:364 and :287", c6g["launches"]["k6"],
               c6["k6_err"], c6["k6_ms"], c6["k6_plain_ms"], c6["k6_bound"]),
     ]}
     print(json.dumps(record))

@@ -1,7 +1,7 @@
 """Time an earlier build of the phase-A kernels K1, K3 and K4
 (csrc/intersect.cu, per-row tables) and of the atlas scatter-add K2
-(csrc/scatter.cu, one launch per stage, through its own wrapper) against
-this checkout's, in turns, on chip_smoke.py's tiles.
+(csrc/scatter.cu, through its own wrapper) against this checkout's, in
+turns, on chip_smoke.py's tiles.
 
 Run from the root of a checkout, on one NVIDIA GPU:
 
@@ -22,8 +22,10 @@ times (phase 19).  Every variant is first held against phase_a_plain
 the arms, then the same in reverse): torch.profiler device ms per launch
 and CUDA-event ms per call.
 
-K2: one zy tile's sweep rows (chip_smoke phase 8): the old build (one
-call per stage), the new (one call over the three stages) and the arms,
+K2: one zy tile's sweep rows into the gradient table [gimg | gcol | gmet]
+(chip_smoke phase 8): the old build (one call per stage where its
+wrapper takes one stage, else one call), the new (one call over the
+three stages) and the arms,
 index_add_ and the deterministic index_put_ on the live rows selected
 beforehand, and an empty kernel launched through ctypes.  The new kernel
 and every arm are held bit for bit against the plain version on the CPU.
@@ -37,18 +39,19 @@ from __future__ import annotations
 
 import ctypes
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import chip_smoke as cs
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 INF = float("inf")
-OLD_K2_CALLS = 3  # the old build's calls per tile: one per stage
 
 
 def main(old_dir: str, arm_dirs) -> int:
@@ -84,17 +87,18 @@ def main(old_dir: str, arm_dirs) -> int:
         if name != "old" and kind == "pa":
             lib.phase_a_launch.argtypes = [p, i, p, i, p, i, i, i, p, p, p, i, f, f, p, p, p, p]
         if name != "old" and kind == "k2":
-            lib.scatter_add_launch.argtypes = [p, i, p, p, p, p, i, p, p, p, p, p,
-                                               ctypes.c_uint, p]
-    # the old build's own wrapper, loaded from its file and pointed at its source
+            csc.bind(lib)
+    # the old build's own wrapper, loaded from its file and pointed at its
+    # source (built above), which it loads and binds itself
     spec = importlib.util.spec_from_file_location("old_scatter", os.path.join(old_dir,
                                                                              "cuda_scatter.py"))
     old_wrapper = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(old_wrapper)
-    old_wrapper._lib = libs["old", "k2"]
-    old_wrapper._lib.scatter_add_launch.argtypes = [p, ctypes.c_longlong, p, p, p,
-                                                    ctypes.c_longlong, p]
-    old_wrapper._lib.scatter_add_launch.restype = i
+    old_wrapper.SOURCE = Path(old_dir, "scatter.cu")
+    old_wrapper._library()
+    # a wrapper of one stage a call, (gimg, texel, contrib, mask), or of
+    # every stage in one call, (gimg, segments)
+    per_stage = len(inspect.signature(old_wrapper.scatter_add_cuda).parameters) == 4
     arms = sorted({name for name, _ in libs} - {"old"})
     stream = lambda: torch.cuda.current_stream().cuda_stream
     record = {"card": smi, "phase_a": [], "k2": None}
@@ -174,41 +178,44 @@ def main(old_dir: str, arm_dirs) -> int:
     m_ro, m_rd, m_t = cs.motion_rays(cs.TILE, 0)
     measure_phase_a("K4", scenes.motion_blur()[0], m_ro, m_rd, m_t)
 
-    # K2: one zy tile's sweep rows
+    # K2: one zy tile's sweep rows into the table [gimg | gcol | gmet]
     scene = zy.scene.to(dev)
-    p_texels = scene.textures.images[..., 0].numel()
     ro, rd, _, k_trace = camera_rays(Camera.build(zy.camera, 1.0).to(dev), rng.key(0), cs.SIZE,
                                      cs.SIZE, True)
-    rows = cs.zy_tile_rows(scene, ro, rd, k_trace)
-    gt = torch.zeros((p_texels, 3), dtype=torch.float32, device=dev)
+    rows, p_table = cs.tile_segments(scene, ro, rd, k_trace, cs.DEPTH)
+    gt = torch.zeros((p_table, 3), dtype=torch.float32, device=dev)
     idx = torch.cat([t[m & (t >= 0)] for t, _, m in rows]).long()
     vals = torch.cat([c[m & (t >= 0)] for t, c, m in rows])
     n_rows = sum(t.shape[0] for t, _, _ in rows)
 
     def old_tile(g):
+        if not per_stage:
+            return old_wrapper.scatter_add_cuda(g, rows)
         for t, c, m in rows:
             old_wrapper.scatter_add_cuda(g, t, c, m)
         return g
 
     def k2_arm(lib):
-        k = len(rows)
-        ptrs = [(ctypes.c_void_p * k)(*(x.data_ptr() for x in col)) for col in zip(*rows)]
-        counts = (ctypes.c_int * k)(*(t.shape[0] for t, _, _ in rows))
-        # this checkout's scratch (cuda_scatter._scratch_for), with room to spare
-        z = lambda n, dtype: torch.zeros(n + 65536, dtype=dtype, device=dev)
-        bufs = (z(p_texels, torch.int64), z(3 * p_texels, torch.float32), z(2, torch.int32),
-                z(n_rows, torch.int64), z(4 * (n_rows + 65536), torch.int32))
-        gen = [0]
+        """The arm's build through this checkout's wrapper, with a scratch
+        of its own."""
+        consts = (lib, lib.scatter_add_max_segments(), lib.scatter_add_max_blocks(),
+                  lib.scatter_add_block_rows(), {})
 
         def run(g=None):
             g = gt if g is None else g
-            gen[0] += 1
-            check(lib.scatter_add_launch(g.data_ptr(), p_texels, *ptrs, counts, k,
-                                         *(b.data_ptr() for b in bufs), gen[0], stream()))
-            return g
+            names = ("_lib", "_max_segments", "_max_blocks", "_block_rows", "_scratch")
+            csc._library()
+            saved = [getattr(csc, n) for n in names]
+            for n, v in zip(names, consts):
+                setattr(csc, n, v)
+            try:
+                return csc.scatter_add_cuda(g, rows)
+            finally:
+                for n, v in zip(names, saved):
+                    setattr(csc, n, v)
         return run
 
-    want = csc.scatter_add_plain(torch.zeros((p_texels, 3)),
+    want = csc.scatter_add_plain(torch.zeros((p_table, 3)),
                                  [tuple(x.cpu() for x in r) for r in rows])
     k2 = {"old": old_tile, "new": lambda g=gt: csc.scatter_add_cuda(g, rows)}
     k2.update({name: k2_arm(libs[name, "k2"]) for name in arms if (name, "k2") in libs})
@@ -241,13 +248,12 @@ def main(old_dir: str, arm_dirs) -> int:
         """Device ms per tile of a K2 variant, from one torch.profiler
         session of 10 tiles paired with a small PyTorch op: each kernel's
         ms per launch seen (a session can miss the first ctypes launch),
-        summed over the kernels of a call, times the old build's calls per
-        tile."""
+        summed over the kernels of a call, times the calls per tile."""
         _, trace = cs.profile_device(lambda: [(v[name](), x.add_(1.0)) for _ in range(10)])
         per = {k: ms / n for k, (n, ms) in trace.items() if "scatter_add" in k}
         split[name].append(per)
-        return (sum(per.values()) * (OLD_K2_CALLS if name == "old" else 1) if per
-                else "not measured")
+        calls = len(rows) if name == "old" and per_stage else 1
+        return sum(per.values()) * calls if per else "not measured"
 
     split = {name: [] for name in k2}  # device ms per launch of each kernel of a call
     dev_ms = {k: [] for k in v}

@@ -11,44 +11,52 @@
 // PyTorch version of the same function is scatter_add_plain in
 // ray_tracing_tpu_torch/ops/cuda_scatter.py.
 //
-// What bounds it on an H100: reading every row's mask byte, the texel of
-// each masked row, the contribution of each live row and each touched
-// texel's three sums (read and written).  In a zy tile's tape sweep few
-// rows are live (about 1,300 of 288,000) and few texels repeat (10), so
-// the work is a few hundred KB and the time is one sweep of the rows, a
-// few dependent trips to memory and a second, small launch (PERF.md,
-// section 6).
+// The table is the tape sweep's [atlas | colors | metal albedo]
+// (render/prb.py), so a "texel" here is any row of it.  What bounds it on
+// an H100: reading every row's mask byte, the texel of each masked row,
+// the contribution of each live row and each touched texel's three sums
+// (read and written).  A tile's tape sweep has about 300,000 rows, a
+// quarter of them live, and most live rows fall on the few color rows: a
+// color row can take 60,000 rows of one call, which must be added one
+// after another in row order (PERF.md, section 6).
 //
-// Design, two launches and no float atomics.  The rows of the segments
-// are numbered by one call-wide position, and every call has its own
-// generation ``gen``: a list entry tagged with another generation is
-// empty, so nothing is cleared between calls.
-//  1. scatter_add_push_kernel sweeps the rows.  Every live row swaps its
-//     tagged position into head[texel] (a 64-bit integer atomicExch).  The
-//     row that finds the head empty is its texel's first row in this call:
-//     it writes g = old + contrib at once and keeps old in old[texel].  A
-//     later row links the old head in next[position] and records itself as
-//     a repeat (texel, position, previous position, gen).
-//  2. scatter_add_repeat_kernel walks the repeats only.  The repeat that is
-//     its texel's final head owns the texel and writes g = old plus all
-//     the texel's rows, added in position order: two rows at once, more by
-//     add_in_order.
-// The live count never leaves the device.  The wrapper keeps the scratch
-// per device and stream.
-
-#include <climits>
+// Design: a stable partition of the live rows by texel, then one ordered
+// sum per texel; two launches, no float atomics.  The rows of the segments
+// are cut into blocks of kBlockRows, numbered in row order, and every call
+// has its own generation ``gen``: a list entry tagged with another
+// generation is empty, so nothing is cleared between calls.
+//  1. scatter_add_place_kernel, one CUDA block per block of rows, counts
+//     its live rows per texel (a hash table in shared memory), lays the
+//     texels' runs out one after another in the block's region of
+//     ``placed`` and writes each live row's contribution there at its rank
+//     among the block's rows of its texel (one warp ranks the rows in row
+//     order).  Each run (start, length) is pushed onto its texel's list
+//     (an integer atomicExch on head[texel]); the first push of a texel in
+//     the call adds the texel to the touched list.
+//  2. scatter_add_sum_kernel, one warp per touched texel, collects the
+//     texel's runs (at most one per block), orders them by start, which is
+//     block order, and adds every row of them onto g[texel] in that order:
+//     the warp stages kDepth * 32 rows at a time in shared memory, the next
+//     ones' loads in flight, and one lane adds them.
+// Every live row is read once by each launch.  The live count never leaves
+// the device.  The wrapper keeps the scratch per device and stream and
+// cuts a call at kMaxRuns blocks.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerThread = 2;
+constexpr int kThreads = 512;  // place kernel
+constexpr int kRowsPerThread = 4;
 constexpr int kBlockRows = kThreads * kRowsPerThread;
+constexpr int kSlotBits = 12;
+constexpr int kSlots = 1 << kSlotBits;  // twice the rows of a block
+constexpr int kSlotsPerThread = kSlots / kThreads;
 constexpr int kMaxSegments = 8;
-constexpr int kRepeatBlocks = 32;
-constexpr int kBatch = 16;  // rows an owner of repeated rows sorts in registers
-constexpr int kWalk = 256;  // list steps an owner takes before it reads every row
+constexpr int kMaxRuns = 1024;  // blocks a call may have: the runs one texel can have
+constexpr int kSumWarps = 2;    // sum kernel
+constexpr int kSumBlocks = 1024;
+constexpr int kDepth = 8;  // rows a lane loads per step of a sum
 
 typedef unsigned long long u64;
 
@@ -58,7 +66,6 @@ struct Segment {
   const bool* mask;
   int rows;
   int first_block;
-  int first_pos;  // the call-wide position of the segment's row 0
 };
 
 struct Segments {
@@ -66,16 +73,17 @@ struct Segments {
   int count;
 };
 
-// The kernels' scratch, kept by the wrapper: head (P, tagged positions,
-// zero at first), old (P x 3 floats), count (2 ints, zero at first), next
-// (a tagged position per row, zero at first) and repeats (one int4 per row
-// and kRepeatBlocks * kThreads more).
+// The kernels' scratch, kept by the wrapper: head (P tagged run starts,
+// zero at first), count (2 ints, zero at first), and per block row of the
+// call the next run of a run's texel (tagged), a run's length, a placed
+// contribution (3 floats) and a touched texel.
 struct Scratch {
   u64* head;
-  float* old;
   int* count;
   u64* next;
-  int4* repeats;
+  int* len;
+  float* placed;
+  int* touched;
 };
 
 __device__ __forceinline__ u64 tagged(unsigned gen, int pos) {
@@ -86,185 +94,242 @@ __device__ __forceinline__ bool current(u64 v, unsigned gen) {
   return static_cast<unsigned>(v >> 32) == gen;
 }
 
-// The segment holding block ``b`` (by_block) or call-wide position ``b``;
-// selected with constant indices, so the kernel parameters stay in the
-// constant bank.
-template <bool kByBlock>
+// The segment holding block ``b``; selected with constant indices, so the
+// kernel parameters stay in the constant bank.
 __device__ __forceinline__ Segment segment_of(const Segments& sg, int b) {
   Segment seg = sg.s[0];
 #pragma unroll
   for (int i = 1; i < kMaxSegments; ++i) {
-    if (i < sg.count && b >= (kByBlock ? sg.s[i].first_block : sg.s[i].first_pos)) seg = sg.s[i];
+    if (i < sg.count && b >= sg.s[i].first_block) seg = sg.s[i];
   }
   return seg;
 }
 
-__device__ __forceinline__ const float* contrib_at(const Segments& sg, int pos) {
-  const Segment seg = segment_of<false>(sg, pos);
-  return seg.contrib + 3 * static_cast<size_t>(pos - seg.first_pos);
-}
-
-// This thread's rows of its block's segment: their row numbers and the
-// texel of each live row (-1 for the others).  Rows lie kThreads apart, so
-// a warp's loads are contiguous.
-__device__ __forceinline__ void live_rows(const Segment& seg, int p, int row[kRowsPerThread],
-                                          int tex[kRowsPerThread]) {
-  const int row0 = (blockIdx.x - seg.first_block) * kBlockRows + threadIdx.x;
-  bool m[kRowsPerThread];
-#pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    row[k] = row0 + k * kThreads;
-    const bool in = row[k] < seg.rows;
-    m[k] = in && seg.mask[row[k]];
-    tex[k] = in ? seg.texel[row[k]] : -1;  // loaded beside the mask, not after it
-  }
-#pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    if (!m[k] || tex[k] < 0 || tex[k] >= p) tex[k] = -1;
+// The slot of texel ``t`` in the block's hash table, inserted if new (at
+// most kBlockRows texels in kSlots slots, so a free slot is always found).
+__device__ __forceinline__ int slot_of(int* key, int t) {
+  unsigned h = (static_cast<unsigned>(t) * 2654435761u) >> (32 - kSlotBits);
+  for (;;) {
+    const int was = atomicCAS(key + h, -1, t);
+    if (was == -1 || was == t) return static_cast<int>(h);
+    h = (h + 1) & (kSlots - 1);
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
-    scatter_add_push_kernel(float* __restrict__ g, int p, const Segments sg, Scratch S,
-                            unsigned gen) {
-  const Segment seg = segment_of<true>(sg, blockIdx.x);
-  int row[kRowsPerThread], tex[kRowsPerThread];
-  live_rows(seg, p, row, tex);
-  // the swap and, beside it, the loads a first row needs
-  u64 prev[kRowsPerThread];
-  float c[kRowsPerThread][3], o[kRowsPerThread][3];
+    scatter_add_place_kernel(int p, const Segments sg, Scratch S, unsigned gen) {
+  __shared__ int key[kSlots];   // texel of each slot, -1 when free
+  __shared__ int fill[kSlots];  // rows per slot, then the next free place of its run
+  __shared__ short at[kBlockRows];  // slot of each row (-1 dead), then its place
+  __shared__ int warp_total[kThreads / 32];
+  const Segment seg = segment_of(sg, blockIdx.x);
+  const int row0 = (blockIdx.x - seg.first_block) * kBlockRows;
+  const int region = blockIdx.x * kBlockRows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < kSlots; i += kThreads) {
+    key[i] = -1;
+    fill[i] = 0;
+  }
+  __syncthreads();
+
+  // this thread's rows, kThreads apart so that a warp's loads are
+  // contiguous: texel, contribution, slot
+  int tex[kRowsPerThread];
+  float c[kRowsPerThread][3];
 #pragma unroll
   for (int k = 0; k < kRowsPerThread; ++k) {
-    prev[k] = 0;
-    if (tex[k] >= 0) {
-      prev[k] = atomicExch(S.head + tex[k], tagged(gen, seg.first_pos + row[k]));
-      const float* src = seg.contrib + 3 * static_cast<size_t>(row[k]);
-      const float* dst = g + 3 * static_cast<size_t>(tex[k]);
+    const int r = row0 + threadIdx.x + k * kThreads;
+    const bool in = r < seg.rows;
+    int t = in ? __ldg(seg.texel + r) : -1;
+    if (!(in && seg.mask[r]) || t < 0 || t >= p) t = -1;
+    tex[k] = t;
+    if (t >= 0) {
+      const float* src = seg.contrib + 3 * static_cast<size_t>(r);
 #pragma unroll
-      for (int ch = 0; ch < 3; ++ch) {
-        c[k][ch] = __ldg(src + ch);
-        o[k][ch] = dst[ch];
-      }
+      for (int ch = 0; ch < 3; ++ch) c[k][ch] = __ldg(src + ch);
     }
   }
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    int s = -1;
+    if (tex[k] >= 0) {
+      s = slot_of(key, tex[k]);
+      atomicAdd(fill + s, 1);
+    }
+    at[threadIdx.x + k * kThreads] = static_cast<short>(s);
+  }
+  __syncthreads();
+
+  // the runs one after another in slot order: an exclusive scan of the
+  // counts, kSlotsPerThread consecutive slots per thread
+  int cnt[kSlotsPerThread];
+  int sum = 0;
+#pragma unroll
+  for (int q = 0; q < kSlotsPerThread; ++q) {
+    cnt[q] = fill[threadIdx.x * kSlotsPerThread + q];
+    sum += cnt[q];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kThreads / 32 ? warp_total[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int v = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += v;
+    }
+    if (lane < kThreads / 32) warp_total[lane] = w;  // inclusive over warps
+  }
+  __syncthreads();
+  int off[kSlotsPerThread];
+  off[0] = (warp > 0 ? warp_total[warp - 1] : 0) + incl - sum;
+#pragma unroll
+  for (int q = 1; q < kSlotsPerThread; ++q) off[q] = off[q - 1] + cnt[q - 1];
+#pragma unroll
+  for (int q = 0; q < kSlotsPerThread; ++q) fill[threadIdx.x * kSlotsPerThread + q] = off[q];
+  __syncthreads();
+
+  // one warp ranks the live rows in row order: a row's place is its run's
+  // next free place plus the rows of its texel before it among these 32
+  if (warp == 0) {
+    const unsigned below = (1u << lane) - 1u;
+    for (int j = lane; j < kBlockRows; j += 32) {
+      const int s = at[j];
+      const unsigned peers = __match_any_sync(0xffffffffu, s);
+      const int place = s >= 0 ? fill[s] + __popc(peers & below) : -1;
+      __syncwarp();
+      if (s >= 0 && (peers & below) == 0) fill[s] += __popc(peers);
+      __syncwarp();
+      at[j] = static_cast<short>(place);
+    }
+  }
+  __syncthreads();
+
 #pragma unroll
   for (int k = 0; k < kRowsPerThread; ++k) {
     if (tex[k] < 0) continue;
-    const int t = tex[k], pos = seg.first_pos + row[k];
-    if (!current(prev[k], gen)) {  // the first row of t: no other row writes g[t] here
-      float* dst = g + 3 * static_cast<size_t>(t);
-      float* old = S.old + 3 * static_cast<size_t>(t);
+    float* dst = S.placed + 3 * static_cast<size_t>(region + at[threadIdx.x + k * kThreads]);
 #pragma unroll
-      for (int ch = 0; ch < 3; ++ch) {
-        dst[ch] = o[k][ch] + c[k][ch];
-        old[ch] = o[k][ch];
-      }
-    } else {
-      S.next[pos] = prev[k];
-      S.repeats[atomicAdd(S.count + (gen & 1), 1)] =
-          make_int4(t, pos, static_cast<int>(prev[k] & 0xffffffffu), static_cast<int>(gen));
-    }
+    for (int ch = 0; ch < 3; ++ch) dst[ch] = c[k][ch];
+  }
+  // push each run onto its texel's list
+#pragma unroll
+  for (int q = 0; q < kSlotsPerThread; ++q) {
+    if (cnt[q] == 0) continue;
+    const int t = key[threadIdx.x * kSlotsPerThread + q];
+    const int start = region + off[q];
+    S.len[start] = cnt[q];
+    const u64 prev = atomicExch(S.head + t, tagged(gen, start));
+    S.next[start] = prev;
+    if (!current(prev, gen)) S.touched[atomicAdd(S.count + (gen & 1), 1)] = t;
   }
 }
 
-// The rows of texel ``t`` added onto old[t] in position order into g[t],
-// its list starting at ``first``.  A walk of the list sorts the first
-// kBatch rows it meets; if that was all of them they are added in that
-// order.  Else the rows between the least and the greatest position seen
-// are read in order and those of texel t added, all rows of the call when
-// the list is longer than kWalk (each step of a walk waits for the last;
-// reading rows in order does not).
-__device__ __forceinline__ void add_in_order(float* g, int t, int first, const Scratch& S,
-                                             unsigned gen, const Segments& sg) {
-  int pos[kBatch];
-  int m = 0, lo = first, hi = first, q = first;
-  bool end = false;
-  for (int steps = 0; steps < kWalk && !end; ++steps) {
-    lo = min(lo, q);
-    hi = max(hi, q);
-    if (m == kBatch) {
-      ++m;  // more than kBatch rows
-    } else if (m < kBatch) {
-      int i = m++;
-      for (; i > 0 && pos[i - 1] > q; --i) pos[i] = pos[i - 1];
-      pos[i] = q;
-    }
-    const u64 nx = S.next[q];
-    end = !current(nx, gen);
-    q = static_cast<int>(nx & 0xffffffffu);
+// One step of a sum: this lane's kDepth rows of the texel's ordered rows,
+// lane + 32 k past the step's first, and its cursor (run, offset) moved
+// on by 32 rows after each.
+struct Cursor {
+  int run;
+  int off;
+};
+
+__device__ __forceinline__ void advance(Cursor& cur, const int* len, int m) {
+  while (cur.run < m && cur.off >= len[cur.run]) {
+    cur.off -= len[cur.run];
+    ++cur.run;
   }
-  if (!end) {
-    lo = 0;
-    hi = INT_MAX - 1;
-  }
-  const float* old = S.old + 3 * static_cast<size_t>(t);
-  float v0 = old[0], v1 = old[1], v2 = old[2];
-  if (end && m <= kBatch) {
-    for (int i = 0; i < m; ++i) {
-      const float* c = contrib_at(sg, pos[i]);
-      v0 = v0 + c[0];
-      v1 = v1 + c[1];
-      v2 = v2 + c[2];
-    }
-  } else {
-#pragma unroll
-    for (int s = 0; s < kMaxSegments; ++s) {
-      if (s >= sg.count) break;
-      const Segment& seg = sg.s[s];
-      const int a = max(lo, seg.first_pos) - seg.first_pos;
-      const int b = min(hi + 1, seg.first_pos + seg.rows) - seg.first_pos;
-#pragma unroll 4
-      for (int r = a; r < b; ++r) {
-        if (seg.texel[r] == t && seg.mask[r]) {  // t is in [0, p): the row is live
-          const float* c = seg.contrib + 3 * static_cast<size_t>(r);
-          v0 = v0 + c[0];
-          v1 = v1 + c[1];
-          v2 = v2 + c[2];
-        }
-      }
-    }
-  }
-  float* dst = g + 3 * static_cast<size_t>(t);
-  dst[0] = v0;
-  dst[1] = v1;
-  dst[2] = v2;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    scatter_add_repeat_kernel(float* __restrict__ g, const Segments sg, Scratch S,
-                              unsigned gen) {
+__device__ __forceinline__ void load_step(const float* placed, const int* start, const int* len,
+                                          int m, Cursor& cur, float4 v[kDepth]) {
+#pragma unroll
+  for (int k = 0; k < kDepth; ++k) {
+    v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (cur.run < m) {
+      const float* src = placed + 3 * static_cast<size_t>(start[cur.run] + cur.off);
+      v[k] = make_float4(src[0], src[1], src[2], 0.f);
+    }
+    cur.off += 32;
+    advance(cur, len, m);
+  }
+}
+
+__global__ void __launch_bounds__(kSumWarps * 32)
+    scatter_add_sum_kernel(float* __restrict__ g, Scratch S, unsigned gen) {
+  __shared__ int runs[kSumWarps][kMaxRuns];   // the texel's run starts as pushed
+  __shared__ int start[kSumWarps][kMaxRuns];  // in block order
+  __shared__ int len[kSumWarps][kMaxRuns];
+  __shared__ float4 buf[kSumWarps][kDepth * 32];
   if (blockIdx.x == 0 && threadIdx.x == 0) S.count[(gen + 1) & 1] = 0;  // the next call's
   const int n = S.count[gen & 1];
-  for (int i = blockIdx.x * kThreads + threadIdx.x;; i += kRepeatBlocks * kThreads) {
-    const int4 e = S.repeats[i];  // loaded beside n, used only below it
-    if (i >= n) break;
-    const int t = e.x, r = e.y, pv = e.z;
-    // every load of a two-row texel at once
-    const u64 h = S.head[t];
-    const u64 nxp = S.next[pv];
-    const float* cr = contrib_at(sg, r);
-    const float* cp = contrib_at(sg, pv);
-    const float* old = S.old + 3 * static_cast<size_t>(t);
-    const float a0 = cr[0], a1 = cr[1], a2 = cr[2];
-    const float b0 = cp[0], b1 = cp[1], b2 = cp[2];
-    const float o0 = old[0], o1 = old[1], o2 = old[2];
-    // not this call's (a call whose repeat launch never ran), or not t's
-    // final head
-    if (static_cast<unsigned>(e.w) != gen || static_cast<int>(h & 0xffffffffu) != r) continue;
-    if (current(nxp, gen)) {  // more than two rows
-      add_in_order(g, t, r, S, gen, sg);
-      continue;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int* my_runs = runs[w];
+  int* my_start = start[w];
+  int* my_len = len[w];
+  float4* my_buf = buf[w];
+  for (int i = blockIdx.x * kSumWarps + w; i < n; i += gridDim.x * kSumWarps) {
+    const int t = S.touched[i];
+    // the texel's runs, pushed in any order
+    int m = 0;
+    for (u64 h = S.head[t];; ++m) {
+      const int r = static_cast<int>(h & 0xffffffffu);
+      if (lane == 0) my_runs[m] = r;
+      h = S.next[r];
+      if (!current(h, gen)) {
+        ++m;
+        break;
+      }
     }
-    float* dst = g + 3 * static_cast<size_t>(t);  // two rows: pv, the first, and r
-    if (pv < r) {
-      dst[0] = (o0 + b0) + a0;
-      dst[1] = (o1 + b1) + a1;
-      dst[2] = (o2 + b2) + a2;
-    } else {
-      dst[0] = (o0 + a0) + b0;
-      dst[1] = (o1 + a1) + b1;
-      dst[2] = (o2 + a2) + b2;
+    __syncwarp();
+    // in block order: a run's rank is the number of runs that start before it
+    for (int a = lane; a < m; a += 32) {
+      const int r = my_runs[a];
+      int rank = 0;
+      for (int b = 0; b < m; ++b) rank += my_runs[b] < r;
+      my_start[rank] = r;
+      my_len[rank] = S.len[r];
     }
+    __syncwarp();
+    int total = 0;
+    for (int a = 0; a < m; ++a) total += my_len[a];
+    float v0 = g[3 * static_cast<size_t>(t)], v1 = g[3 * static_cast<size_t>(t) + 1],
+          v2 = g[3 * static_cast<size_t>(t) + 2];
+    Cursor cur = {0, lane};
+    advance(cur, my_len, m);
+    float4 now[kDepth], next[kDepth];
+    load_step(S.placed, my_start, my_len, m, cur, now);
+    for (int base = 0; base < total; base += kDepth * 32) {
+      if (base + kDepth * 32 < total) load_step(S.placed, my_start, my_len, m, cur, next);
+#pragma unroll
+      for (int k = 0; k < kDepth; ++k) my_buf[32 * k + lane] = now[k];
+      __syncwarp();
+      if (lane == 0) {
+        const int end = min(kDepth * 32, total - base);
+#pragma unroll 32
+        for (int j = 0; j < end; ++j) {
+          const float4 x = my_buf[j];
+          v0 = v0 + x.x;
+          v1 = v1 + x.y;
+          v2 = v2 + x.z;
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < kDepth; ++k) now[k] = next[k];
+    }
+    if (lane == 0) {
+      float* dst = g + 3 * static_cast<size_t>(t);
+      dst[0] = v0;
+      dst[1] = v1;
+      dst[2] = v2;
+    }
+    __syncwarp();
   }
 }
 
@@ -272,37 +337,38 @@ __global__ void empty_kernel() {}
 
 }  // namespace
 
-// The most segments one call takes, and the repeat entries a call needs
-// beyond one per row.
+// The most segments and blocks one call takes, and the rows of a block.
 extern "C" int scatter_add_max_segments() { return kMaxSegments; }
-extern "C" int scatter_add_repeat_slack() { return kRepeatBlocks * kThreads; }
+extern "C" int scatter_add_max_blocks() { return kMaxRuns; }
+extern "C" int scatter_add_block_rows() { return kBlockRows; }
 
 // Launches K2 over ``n_seg`` segments (host arrays of their texel,
-// contribution and mask pointers and row counts, fewer than 2**31 rows in
-// all) into the (p, 3) table ``g`` on ``stream`` as generation ``gen``
-// (> 0, a new one every call with the same scratch), with the scratch of
-// struct Scratch, and returns the CUDA error (0 = launched).
+// contribution and mask pointers and row counts, in at most kMaxRuns
+// blocks of kBlockRows rows, each segment starting a block) into the (p,
+// 3) table ``g`` on ``stream`` as generation ``gen`` (> 0, a new one every
+// call with the same scratch), with the scratch of struct Scratch (next,
+// len, placed and touched sized for kBlockRows rows per block), and
+// returns the CUDA error (0 = launched).
 extern "C" int scatter_add_launch(float* g, int p, const int* const* texel,
                                   const float* const* contrib, const bool* const* mask,
-                                  const int* rows, int n_seg, u64* head, float* old, int* count,
-                                  u64* next, int* repeats, unsigned gen, cudaStream_t stream) {
+                                  const int* rows, int n_seg, u64* head, int* count, u64* next,
+                                  int* len, float* placed, int* touched, unsigned gen,
+                                  cudaStream_t stream) {
   if (n_seg < 1 || n_seg > kMaxSegments || gen == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Segments sg = {};
   sg.count = n_seg;
-  long long blocks = 0, pos = 0;
+  int blocks = 0;
   for (int s = 0; s < n_seg; ++s) {
-    if (rows[s] < 1 || pos + rows[s] >= (1LL << 31) - 1)
-      return static_cast<int>(cudaErrorInvalidValue);
-    sg.s[s] = {texel[s], contrib[s], mask[s], rows[s], static_cast<int>(blocks),
-               static_cast<int>(pos)};
-    blocks += (rows[s] + kBlockRows - 1) / kBlockRows;
-    pos += rows[s];
+    if (rows[s] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const long long need = (rows[s] + static_cast<long long>(kBlockRows) - 1) / kBlockRows;
+    if (blocks + need > kMaxRuns) return static_cast<int>(cudaErrorInvalidValue);
+    sg.s[s] = {texel[s], contrib[s], mask[s], rows[s], blocks};
+    blocks += static_cast<int>(need);
   }
-  const Scratch S = {head, old, count, next, reinterpret_cast<int4*>(repeats)};
-  const unsigned grid = static_cast<unsigned>(blocks);
-  scatter_add_push_kernel<<<grid, kThreads, 0, stream>>>(g, p, sg, S, gen);
-  scatter_add_repeat_kernel<<<kRepeatBlocks, kThreads, 0, stream>>>(g, sg, S, gen);
+  const Scratch S = {head, count, next, len, placed, touched};
+  scatter_add_place_kernel<<<blocks, kThreads, 0, stream>>>(p, sg, S, gen);
+  scatter_add_sum_kernel<<<kSumBlocks, kSumWarps * 32, 0, stream>>>(g, S, gen);
   return static_cast<int>(cudaGetLastError());
 }
 

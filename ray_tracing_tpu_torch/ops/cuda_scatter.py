@@ -6,7 +6,9 @@ It adds masked (N, 3) contribution rows into the texel-major (P, 3)
 image-gradient table at flat texel ids; rows whose texel is negative are
 skipped.  The rows come as segments, ``(texel (N,) i32, contrib (N, 3)
 f32, mask (N,) bool)`` triples, one per stage of a tile's tape sweep,
-and one call of the kernel (two launches) takes them all.  The TPU kernel's channel-planar table
+and one call of the kernel (two launches) takes them all, up to
+``_max_segments`` segments and ``_max_blocks`` blocks of ``_block_rows``
+rows; a longer list is cut into calls in row order.  The TPU kernel's channel-planar table
 and its chunk and block live flags exist for the TPU's on-chip memories
 and have no counterpart here.
 
@@ -36,9 +38,10 @@ LAUNCHES = 0  # calls of the kernel (two launches each) since the last reset
 
 _lib = None
 _max_segments = None
-_slack = None
-# (device index, stream) -> [generation, head, old, count, next, repeats]:
-# the kernel's scratch, kept; head, count and next start zeroed
+_max_blocks = None
+_block_rows = None
+# (device index, stream) -> [generation, head, count, next, len, placed,
+# touched]: the kernel's scratch, kept; head and count start zeroed
 _scratch = {}
 
 
@@ -53,22 +56,29 @@ def scatter_add_plain(gimg, segments):
                            torch.cat([c[m] for _, c, m in live]))
 
 
+def bind(lib):
+    """Set the argument types of a loaded build of csrc/scatter.cu;
+    returns it."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.scatter_add_launch.argtypes = [p, i, p, p, p, p, i, p, p, p, p, p, p, ctypes.c_uint, p]
+    lib.scatter_add_launch.restype = i
+    for name in ("scatter_add_max_segments", "scatter_add_max_blocks", "scatter_add_block_rows"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+    # an empty kernel through the same route: the launch floor, for
+    # measurements
+    lib.empty_launch.argtypes = [p]
+    lib.empty_launch.restype = i
+    return lib
+
+
 def _library():
-    global _lib, _max_segments, _slack
+    global _lib, _max_segments, _max_blocks, _block_rows
     if _lib is None:
-        lib = ctypes.CDLL(str(_build.build(SOURCE)))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.scatter_add_launch.argtypes = [p, i, p, p, p, p, i, p, p, p, p, p, ctypes.c_uint, p]
-        lib.scatter_add_launch.restype = i
-        for name in ("scatter_add_max_segments", "scatter_add_repeat_slack"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i
-        # an empty kernel through the same route: the launch floor, for
-        # measurements
-        lib.empty_launch.argtypes = [p]
-        lib.empty_launch.restype = i
+        lib = bind(ctypes.CDLL(str(_build.build(SOURCE))))
         _max_segments = lib.scatter_add_max_segments()
-        _slack = lib.scatter_add_repeat_slack()
+        _max_blocks = lib.scatter_add_max_blocks()
+        _block_rows = lib.scatter_add_block_rows()
         _lib = lib
     return _lib
 
@@ -86,31 +96,52 @@ def _check(name, x, device, dtype, shape):
 
 def _scratch_for(device, stream: int, p: int, rows: int):
     """The kept scratch of ``device`` and ``stream``, grown to ``p``
-    texels and ``rows`` rows, with a new generation for this call: a list
-    entry of an older generation reads as empty, so the kernel clears
-    nothing.  Past 2**32 - 1 generations the tagged tables start over."""
+    texels and ``rows`` block rows, with a new generation for this call:
+    a list entry of an older generation reads as empty, so the kernel
+    clears nothing.  Past 2**32 - 1 generations the tagged tables start
+    over."""
     key = (device.index, stream)
     sc = _scratch.get(key)
     if sc is None or sc[0] == 2**32 - 1:
         i32 = dict(dtype=torch.int32, device=device)
-        sc = [0, torch.zeros((0,), dtype=torch.int64, device=device),
-              torch.empty((0,), dtype=torch.float32, device=device), torch.zeros((2,), **i32),
-              torch.zeros((0,), dtype=torch.int64, device=device), torch.empty((0,), **i32)]
+        sc = [0, torch.zeros((0,), dtype=torch.int64, device=device), torch.zeros((2,), **i32),
+              torch.empty((0,), dtype=torch.int64, device=device), torch.empty((0,), **i32),
+              torch.empty((0,), dtype=torch.float32, device=device), torch.empty((0,), **i32)]
         _scratch[key] = sc
     if sc[1].numel() < p:
         sc[1] = torch.zeros((p,), dtype=torch.int64, device=device)
-        sc[2] = torch.empty((3 * p,), dtype=torch.float32, device=device)
-    if sc[4].numel() < rows:
-        sc[4] = torch.zeros((rows,), dtype=torch.int64, device=device)
-        sc[5] = torch.empty((4 * (rows + _slack),), dtype=torch.int32, device=device)
+    if sc[3].numel() < rows:
+        sc[3] = torch.empty((rows,), dtype=torch.int64, device=device)
+        sc[4] = torch.empty((rows,), dtype=torch.int32, device=device)
+        sc[5] = torch.empty((3 * rows,), dtype=torch.float32, device=device)
+        sc[6] = torch.empty((rows,), dtype=torch.int32, device=device)
     sc[0] += 1
     return sc
+
+
+def _calls(pieces):
+    """The segments ``(texel, contrib, mask pointers, rows)`` grouped into
+    calls of at most ``_max_segments`` segments and ``_max_blocks``
+    blocks, a segment cut where a call is full; the rows keep their
+    order."""
+    calls, call, blocks = [], [], 0
+    for texel, contrib, mask, n in pieces:
+        a = 0
+        while a < n:
+            take = min(n - a, (_max_blocks - blocks) * _block_rows)
+            call.append((texel + 4 * a, contrib + 12 * a, mask + a, take))
+            blocks += -(-take // _block_rows)
+            a += take
+            if blocks == _max_blocks or len(call) == _max_segments:
+                calls.append(call)
+                call, blocks = [], 0
+    return calls + [call] if call else calls
 
 
 def scatter_add_cuda(gimg, segments):
     """K2 on CUDA tensors: the same update as :func:`scatter_add_plain`
     run on the CPU, in place on ``gimg``, in one call of the kernel's two
-    launches (one call per ``_max_segments`` segments); returns
+    launches (more where :func:`_calls` cuts the rows); returns
     ``gimg``."""
     global LAUNCHES
     device = gimg.device
@@ -133,12 +164,9 @@ def scatter_add_cuda(gimg, segments):
             pieces.append((texel.data_ptr(), contrib.data_ptr(), mask.data_ptr(), n))
     stream = torch.cuda.current_stream(device).cuda_stream
     with _build.on_device(device):
-        for s in range(0, len(pieces), _max_segments):
-            group = pieces[s:s + _max_segments]
+        for group in _calls(pieces):
             k = len(group)
-            rows = sum(piece[3] for piece in group)
-            if rows >= 2**31 - 1:
-                raise ValueError(f"K2 takes fewer than 2**31 - 1 rows a call, got {rows}")
+            rows = sum(-(-piece[3] // _block_rows) for piece in group) * _block_rows
             gen, *buffers = _scratch_for(device, stream, p, rows)
             ptrs = [(ctypes.c_void_p * k)(*col) for col in list(zip(*group))[:3]]
             counts = (ctypes.c_int * k)(*(piece[3] for piece in group))

@@ -292,12 +292,16 @@ def intersect_scene(scene: SceneData, ro, rd, t_min: float, t_max: float, med_u=
             merge(kind, phase_b(scene, ro, rd, t_min, t_max, idx), table.material[idx])
     if scene.n_medium:
         # reference constant_medium.rs:77-84: fixed +x normal, front face
-        # true, uv zero; p from the world-space ray at phase A's t
+        # true, uv zero; p from the world-space ray at phase A's t, which
+        # on these lanes is the free flight's (it carries the tangent of
+        # the undetached ray); the other lanes' t (INF on a miss) is
+        # replaced before the product, so reverse-mode AD sees no 0 * inf
         idx = best_idx.clamp(max=scene.n_medium - 1)
         med_n = torch.zeros_like(ro)
         med_n[:, 0] = 1.0
+        med_t = torch.where(best_kind == KIND_MEDIUM, best_t, 0.0)
         merge(KIND_MEDIUM,
-              (ro + rd * best_t[:, None], med_n, torch.zeros_like(uv),
+              (ro + rd * med_t[:, None], med_n, torch.zeros_like(uv),
                torch.ones_like(front_face)),
               scene.media.material[idx])
 

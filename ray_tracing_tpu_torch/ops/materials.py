@@ -130,7 +130,10 @@ def _scatter_given_tex(scene: SceneData, hit: Hit, rd_in, u, tex) -> Scatter:
         p_mat = smp.cosine_pdf_value(n, mix_dir)
         p_light = lights_value(scene, hit.p, mix_dir)
         p_mix = 0.5 * p_light + 0.5 * p_mat
-        weight = torch.where(p_mix > 0.0, p_mat / p_mix, 0.0)
+        # the division is guarded so that reverse-mode AD of the dense
+        # trace sees no 0 * inf on the lanes the where drops
+        mixed = p_mix > 0.0
+        weight = torch.where(mixed, p_mat / torch.where(mixed, p_mix, 1.0), 0.0)
         lamb_dir = mix_dir
         lamb_coef = tex * weight[..., None]
     else:

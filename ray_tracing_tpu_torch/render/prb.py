@@ -19,9 +19,12 @@ bounce j.  The division is exact for A_j > 0; at A_j = 0 the suffix is
 
 Gradients cover the solid colors (``textures.color``), the atlas texels
 (``textures.images``) and the metal albedo (``materials.albedo``).  The
-accumulators are plain tables updated in place: ``index_add_`` for the
-small color and material tables, kernel K2 (ops/cuda_scatter.py) for
-the atlas, deterministic on the card.  The fuzz and IR gradients come from forward-mode tangents
+three accumulators are views of one (P + T + M, 3) table laid out
+``[gimg | gcol | gmet]``, updated in place by one ordered scatter-add
+per tile: kernel K2 (ops/cuda_scatter.py) on the card, which adds the
+contributions to each table row in row order without float atomics, so
+every color-linear gradient repeats bit for bit and equals the CPU's.
+The fuzz and IR gradients come from forward-mode tangents
 (render/prb_scalar.py).
 """
 
@@ -34,7 +37,6 @@ import numpy as np
 import torch
 
 from ray_tracing_tpu_torch.models.scene import SceneData
-from ray_tracing_tpu_torch.ops.cuda_scatter import scatter_add
 
 _A_EPS = 1e-6
 
@@ -69,29 +71,20 @@ class PrbParams(NamedTuple):
     metal_albedo: torch.Tensor  # (M, 3) = scene.materials.albedo
 
 
-def _one_hot_add(gacc, leaf, contrib, mask):
-    """``gacc[leaf[r]] += contrib[r]`` over the rows with ``mask`` set, in
-    place on the (T, 3) or (M, 3) table.  Masked rows add 0.0 to row
-    ``leaf[r]``, which changes nothing and needs no host sync."""
-    return gacc.index_add_(0, leaf.long(), torch.where(mask[:, None], contrib, 0.0))
-
-
-def _gimg_add(gimg, segments):
-    """The (P, 3) atlas-gradient table += the masked scatter of each
-    ``(texel, contrib (N, 3), mask)`` segment at flat texel ids, the rows
-    in order: kernel K2 on the card, one call for all the segments."""
-    return scatter_add(gimg, segments)
+def _grad_rows(scene: SceneData):
+    """(P, T, M): the atlas texels (at least 1, so that the table always
+    has an image block), the color rows and the material rows."""
+    i, h, w = scene.textures.images.shape[:3]
+    return max(i * h * w, 1), scene.textures.color.shape[0], scene.materials.albedo.shape[0]
 
 
 def _zero_grads(scene: SceneData):
-    """(gcol (T, 3), gimg (P, 3) texel-major with P = I*Hmax*Wmax, gmet
-    (M, 3)) accumulators on the scene's device."""
-    dev = scene.device
-    t = scene.textures.color.shape[0]
-    i, h, w = scene.textures.images.shape[:3]
-    m = scene.materials.albedo.shape[0]
-    z = lambda rows: torch.zeros((rows, 3), dtype=torch.float32, device=dev)
-    return z(t), z(max(i * h * w, 1)), z(m)
+    """One zeroed (P + T + M, 3) table ``[gimg | gcol | gmet]`` on the
+    scene's device, and its views (gcol (T, 3), gimg (P, 3) texel-major
+    with P = I*Hmax*Wmax, gmet (M, 3))."""
+    p, t, m = _grad_rows(scene)
+    table = torch.zeros((p + t + m, 3), dtype=torch.float32, device=scene.device)
+    return table, (table[p:p + t], table[:p], table[p + t:])
 
 
 def grads_image_flat(gacc, scene: SceneData):

@@ -151,14 +151,6 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet, see ROADMAP")
 
 
-def _refuse_unheld(scene: SceneData):
-    """The gradient pass is held against the JAX package on sphere and
-    rect scenes only: refuse triangles, media and transforms."""
-    if scene.n_triangles or scene.n_medium or scene.spheres.has_transforms \
-            or scene.rects.has_transforms:
-        raise _not_ported("the gradient pass of a scene with triangles, media or transforms")
-
-
 def prb_loss_and_grad_all(loss_fn, params: AllParams, scene: SceneData, ro, rd, key,
                           max_depth: int, *, compaction: bool = True,
                           tangent_cap: int | None = None, use_tape: bool = True,
@@ -182,7 +174,6 @@ def prb_loss_and_grad_all(loss_fn, params: AllParams, scene: SceneData, ro, rd, 
         raise _not_ported("the dense (compaction=False) gradient path")
     if not use_tape:
         raise _not_ported("the re-tracing (use_tape=False) gradient path")
-    _refuse_unheld(scene)
     s = _with_all(scene, params)
     rad, touched, tape = trace_taped(s, ro, rd, key, max_depth, ids_base=ids_base)
     r = rad.detach().requires_grad_(True)
@@ -213,6 +204,5 @@ def scalar_tangent_pass(params: AllParams, scene: SceneData, ro, rd, key, max_de
     ``ids_base`` offsets (pass the whole wavefront's base, normally 0)."""
     if not compaction:
         raise _not_ported("the dense (compaction=False) tangent pass")
-    _refuse_unheld(scene)
     return _scalar_tangent_pass(params, scene, ro, rd, key, max_depth, g, touched,
                                 tangent_cap=tangent_cap, ids_base=ids_base)

@@ -39,8 +39,9 @@ from ray_tracing_tpu_torch.models.scene import (
     MAT_METAL,
     SceneData,
 )
+from ray_tracing_tpu_torch.ops.cuda_scatter import scatter_add
 from ray_tracing_tpu_torch.render.integrator import stage_schedule, trace_compacted
-from ray_tracing_tpu_torch.render.prb import _A_EPS, _gimg_add, _one_hot_add, _zero_grads
+from ray_tracing_tpu_torch.render.prb import _A_EPS, _grad_rows, _zero_grads
 
 F_SOLID = 1   # leaf contribution reads textures.color
 F_IMAGE = 2   # leaf contribution scatters into the atlas
@@ -147,17 +148,17 @@ def _flat_rows(leaf, texel, mat, flags, c, rad_after, g_s, tot_s):
     return leaf.reshape(-1), texel.reshape(-1), mat.reshape(-1), flags.reshape(-1), contrib
 
 
-def _accum_rows(gacc, leaf, texel, mat, flags, c, rad_after, g_s, tot_s):
-    """One stage's tape block -> the color and metal accumulators, in
-    place (the same masks as the JAX package's replay), one call per
-    table; returns the stage's atlas rows ``(texel, contrib, mask)`` for
-    the tile's one scatter into the image gradient."""
-    gcol, _, gmet = gacc
+def _table_rows(p: int, t: int, leaf, texel, mat, flags, c, rad_after, g_s, tot_s):
+    """One stage's tape block -> its segment of the (P + T + M, 3)
+    gradient table ``[gimg | gcol | gmet]``: ``(row (B*L,) i32, contrib
+    (B*L, 3), mask)`` with row = texel, P + leaf or P + T + material.  A
+    tape row feeds at most one table (F_SOLID, F_IMAGE and F_METAL
+    exclude each other), so the mask is their union."""
     leaf, texel, mat, flags, contrib = _flat_rows(leaf, texel, mat, flags, c, rad_after,
                                                   g_s, tot_s)
-    _one_hot_add(gcol, leaf, contrib, (flags & F_SOLID) != 0)
-    _one_hot_add(gmet, mat, contrib, (flags & F_METAL) != 0)
-    return texel, contrib, (flags & F_IMAGE) != 0
+    row = torch.where((flags & F_IMAGE) != 0, texel,
+                      torch.where((flags & F_SOLID) != 0, leaf + p, mat + (p + t)))
+    return row, contrib, (flags & (F_SOLID | F_IMAGE | F_METAL)) != 0
 
 
 def stage_blocks(tape: PrbTape, rad_total, g):
@@ -176,15 +177,20 @@ def stage_blocks(tape: PrbTape, rad_total, g):
         offset += bounces
 
 
+def sweep_segments(scene: SceneData, tape: PrbTape, rad_total, g) -> list:
+    """The tape's rows of the gradient table, one ``(row, contrib, mask)``
+    segment per stage (:func:`_table_rows`): what K2 takes per tile."""
+    p, t, _ = _grad_rows(scene)
+    return [_table_rows(p, t, *block) for block in stage_blocks(tape, rad_total, g)]
+
+
 @torch.no_grad()
 def tape_sweep(scene: SceneData, tape: PrbTape, rad_total, g):
     """Accumulate (gcol (T, 3), gimg (P, 3), gmet (M, 3)) from the tape:
-    no traversal; the color and metal tables take one accumulation per
-    stage over all of the stage's bounces, the atlas one scatter of every
-    stage's rows in row order (kernel K2 on the card: one call per
-    tile).  ``rad_total`` and ``g`` are in input-row order."""
-    gacc = _zero_grads(scene)
-    image_rows = [_accum_rows(gacc, *block) for block in stage_blocks(tape, rad_total, g)]
-    if scene.textures.images.shape[0] > 0:
-        _gimg_add(gacc[1], image_rows)
+    no traversal; one ordered scatter of every stage's rows into the one
+    table ``[gimg | gcol | gmet]`` (kernel K2 on the card: one call per
+    tile, bit-repeatable; the plain version on the CPU, the same sums in
+    the same order).  ``rad_total`` and ``g`` are in input-row order."""
+    table, gacc = _zero_grads(scene)
+    scatter_add(table, sweep_segments(scene, tape, rad_total, g))
     return gacc

@@ -152,19 +152,19 @@ def test_scatter_kernel_matches_plain_on_card(cuda):
 
 def test_scatter_kernel_deterministic_all_live(cuda):
     """All rows live: 300,017 rows over 3 segments, on 50,000 texels (a
-    few rows each, sorted in registers), on 5,000 (lists past that batch:
-    the rows between their ends read in order) and on one (a list past
-    the walk: every row read in order): bit-equal to the CPU's plain
-    version and repeatable."""
+    few rows each, most in one block's run), on 5,000 (runs in many
+    blocks) and on one (a run in every block), and 2,500,000 rows on 3
+    texels, which the wrapper cuts into two calls: bit-equal to the
+    CPU's plain version and repeatable."""
     r = np.random.RandomState(4)
-    for p, texels in ((60_000, 50_000), (5000, 5000), (7, 1)):
-        n = 300_017
+    for p, texels, n, calls in ((60_000, 50_000, 300_017, 1), (5000, 5000, 300_017, 1),
+                                (7, 1, 300_017, 1), (5, 3, 2_500_000, 2)):
         texel = torch.from_numpy(r.randint(0, texels, n).astype(np.int32)).to(cuda)
         contrib = torch.from_numpy(r.uniform(-1, 1, (n, 3)).astype(np.float32)).to(cuda)
         mask = torch.ones(n, dtype=torch.bool, device=cuda)
         cuts = (0, 100_000, 250_000, n)
         assert _k2_against_cpu(p, [(texel[a:b], contrib[a:b], mask[a:b])
-                                   for a, b in zip(cuts[:-1], cuts[1:])]) == 1
+                                   for a, b in zip(cuts[:-1], cuts[1:])]) == calls
 
 
 def test_scatter_kernel_refuses_bad_inputs(cuda):
@@ -186,35 +186,70 @@ def test_scatter_kernel_refuses_bad_inputs(cuda):
     assert cs.LAUNCHES == before
 
 
-def test_gradient_pass_on_card_matches_cpu(cuda, zy):
-    """zy at 96x96 depth 6: the loss and the color-linear gradients
-    (color, images -- the leaf K2 writes --, metal_albedo) on the card
-    against the port's CPU run at the same key, and K2 launched on the
-    card.  A few paths part where the card's and the CPU's
-    transcendentals round differently, so each quantity is held to the
-    card's own noise floor: its difference to the CPU at the same key is
-    at most 0.6x its difference between two keys."""
-    cam = Camera.build(zy.camera, 1.0)
-    leaves = ("color", "images", "metal_albedo")
+def _card_and_cpu_grads(bundle, cuda, size, depth, leaves):
+    """run(device, seed) of the fwd+bwd at ``size``^2 and ``depth``: the
+    loss and the ``leaves`` on the CPU, and the counts of the kernels
+    launched (K1, K2, K3, K5)."""
+    cam = Camera.build(bundle.camera, 1.0)
 
     def run(device, seed):
-        scene = zy.scene.to(device)
-        ro, rd, _, k_trace = camera_rays(cam.to(device), rng.key(seed), 96, 96)
-        before = cs.LAUNCHES
+        scene = bundle.scene.to(device)
+        ro, rd, _, k_trace = camera_rays(cam.to(device), rng.key(seed), size, size)
+        before = (ci.LAUNCHES, cs.LAUNCHES, ci.TF_LAUNCHES, ct.LAUNCHES)
         loss, grads = prb_loss_and_grad_all(torch.mean, params_of(scene), scene, ro, rd,
-                                            k_trace, 6)
+                                            k_trace, depth)
         assert all(torch.isfinite(g).all() for g in grads)
+        after = (ci.LAUNCHES, cs.LAUNCHES, ci.TF_LAUNCHES, ct.LAUNCHES)
         return ([loss.cpu()] + [getattr(grads, f).cpu() for f in leaves],
-                cs.LAUNCHES - before)
+                tuple(a - b for a, b in zip(after, before)))
 
-    on_cpu, k_cpu = run("cpu", 4)
-    on_card, k_card = run(cuda, 4)
-    other, _ = run(cuda, 5)
-    assert k_cpu == 0 and k_card > 0
-    for name, a, b, c in zip(("loss",) + leaves, on_card, on_cpu, other):
+    return run
+
+
+def _inside_noise_floor(names, on_card, on_cpu, other):
+    for name, a, b, c in zip(names, on_card, on_cpu, other):
         matched = float((a - b).abs().sum())
         floor = float((a - c).abs().sum())
         assert floor > 0 and matched <= 0.6 * floor, (name, matched, floor)
+
+
+def test_gradient_pass_on_card_matches_cpu(cuda, zy):
+    """zy at 96x96 depth 6: the loss and the color-linear gradients
+    (color, images, metal_albedo, all three K2's) on the card against the
+    port's CPU run at the same key, and K2 launched on the card.  A few
+    paths part where the card's and the CPU's transcendentals round
+    differently, so each quantity is held to the card's own noise floor:
+    its difference to the CPU at the same key is at most 0.6x its
+    difference between two keys.  A second card run at the same key
+    repeats the loss and every color-linear leaf bit for bit."""
+    leaves = ("color", "images", "metal_albedo")
+    run = _card_and_cpu_grads(zy, cuda, 96, 6, leaves)
+    on_cpu, k_cpu = run("cpu", 4)
+    on_card, k_card = run(cuda, 4)
+    again, _ = run(cuda, 4)
+    other, _ = run(cuda, 5)
+    assert k_cpu[1] == 0 and k_card[1] > 0
+    _inside_noise_floor(("loss",) + leaves, on_card, on_cpu, other)
+    for name, a, b in zip(("loss",) + leaves, on_card, again):
+        assert torch.equal(a, b), name
+
+
+def test_scene_json_gradient_on_card_matches_cpu(cuda, scene_json):
+    """data/scene.json at 64x64 depth 6: the loss and all five leaves on
+    the card against the port's CPU run at the same key, held to the
+    card's own noise floor as above; K2, K3 and K5 launched on the card;
+    a second card run at the same key repeats the loss and the
+    color-linear leaves bit for bit."""
+    leaves = ("color", "images", "metal_albedo", "fuzz", "ir")
+    run = _card_and_cpu_grads(scene_json, cuda, 64, 6, leaves)
+    on_cpu, k_cpu = run("cpu", 4)
+    on_card, k_card = run(cuda, 4)
+    again, _ = run(cuda, 4)
+    other, _ = run(cuda, 5)
+    assert k_cpu == (0, 0, 0, 0) and k_card[1] == 1 and k_card[2] > 0 and k_card[3] > 0
+    _inside_noise_floor(("loss",) + leaves, on_card, on_cpu, other)
+    for name, a, b in zip(("loss",) + leaves[:3], on_card, again):
+        assert torch.equal(a, b), name
 
 
 def _bunny_rays(n, seed, device):

@@ -363,11 +363,11 @@ def test_params_of_across_packages(textured, changed):
 @pytest.mark.parametrize("depth", [4, 12])
 def test_tape_sweep_one_scatter_equals_per_stage(zy, depth):  # noqa: F811
     """A 32x32 zy tile (the atlas texels live) at depth 4 (one stage)
-    and 12 (three): tape_sweep's one atlas scatter per tile equals a
-    scatter per stage, bit for bit, and the color and metal tables too."""
+    and 12 (three): tape_sweep's one scatter per tile into the one table
+    [gimg | gcol | gmet] equals a scatter per stage into each of the
+    three tables on its own, bit for bit."""
     from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
     from ray_tracing_tpu_torch.ops.cuda_scatter import scatter_add_plain
-    from ray_tracing_tpu_torch.render.prb import _one_hot_add, _zero_grads
     from ray_tracing_tpu_torch.render.prb_tape import (
         F_IMAGE,
         F_METAL,
@@ -383,13 +383,12 @@ def test_tape_sweep_one_scatter_equals_per_stage(zy, depth):  # noqa: F811
     rad, _, tape = trace_taped(scene, ro, rd, key, depth)
     g = torch.from_numpy(np.random.RandomState(3).uniform(0.5, 1.5, rad.shape).astype(np.float32))
     got = tape_sweep(scene, tape, rad, g)
-    want = _zero_grads(scene)
+    want = [torch.zeros_like(x) for x in got]
     for block in stage_blocks(tape, rad, g):
         leaf, texel, mat, flags, contrib = _flat_rows(*block)
-        _one_hot_add(want[0], leaf, contrib, (flags & F_SOLID) != 0)
-        scatter_add_plain(want[1], [(texel, contrib, (flags & F_IMAGE) != 0)])
-        _one_hot_add(want[2], mat, contrib, (flags & F_METAL) != 0)
+        for table, row, flag in zip(want, (leaf, texel, mat), (F_SOLID, F_IMAGE, F_METAL)):
+            scatter_add_plain(table, [(row, contrib, (flags & flag) != 0)])
     assert len(tape.alive_counts) == (1 if depth == 4 else 3)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert float(got[1].abs().sum()) > 0.0
+        assert float(a.abs().sum()) > 0.0

@@ -98,36 +98,23 @@ _CAMERA = {"look_from": [0, 0, -5], "look_at": [0, 0, 0], "vfov": 40}
 _WHITE = {"type": "lambertian", "texture": {"type": "solid-color", "color": [0.5, 0.5, 0.5]}}
 
 
-_BUNNY = {"type": "mesh", "file": "bunny.obj"}
-_IMPORTANT_TRIANGLE = {"shape": {"type": "triangle", "vertices": [[0, 0, 0], [1, 0, 0], [0, 1, 0]]},
-                       "material": _WHITE, "important": True}
-
-
-_NOT_PORTED = "not ported yet, see ROADMAP"
-
-
 @pytest.mark.parametrize(
     "objects, match",
     [
-        ([_IMPORTANT_TRIANGLE], _NOT_PORTED),
-        ([{"shape": _BUNNY, "material": _WHITE, "important": True}], _NOT_PORTED),
-        ([{"shape": {"type": "sphere", "center": [0, 0, 0], "radius": 1, "translate": [1, 0, 0]},
-           "material": _WHITE, "important": True}], _NOT_PORTED),
         ([{"shape": {"type": "moving-sphere", "center0": [0, 0, 0], "center1": [1, 0, 0],
                      "radius": 1, "translate": [1, 0, 0]}, "material": _WHITE}],
          "does not take a transform"),
     ],
-    # a triangle light, a mesh light, a transformed light, a transformed
-    # moving sphere
-    ids=["triangle", "mesh", "transform", "moving-sphere"],
+    # a transformed moving sphere
+    ids=["moving-sphere"],
 )
 def test_unported_surface_raises(objects, match):
-    """What the port cannot draw raises when the scene is built or, for
-    lights, at the first render, instead of drawing something else:
-    triangle lights (one triangle, a mesh), transformed lights, and a
-    moving sphere with a transform (refused by the JAX package too).
-    Meshes above SWEEP_MAX_TRIS and moving spheres render
-    (tests/test_torch_clusters.py, tests/test_torch_motion.py)."""
+    """What the port cannot draw raises when the scene is built or at the
+    first render, instead of drawing something else: a moving sphere with
+    a transform (refused by the JAX package too).  Meshes above
+    SWEEP_MAX_TRIS, moving spheres, and triangle, mesh and transformed
+    lights render (tests/test_torch_clusters.py, tests/test_torch_motion.py,
+    tests/test_torch_prb_scene.py)."""
     param = {"renderer": {"width": 4, "height": 4, "max_depth": 1}, "camera": _CAMERA,
              "objects": objects}
     with pytest.raises(NotImplementedError, match=match):

@@ -4,7 +4,7 @@ hit record of camera and second-bounce rays, the depth-1 image, the
 matched-key image at depth 4 inside the noise floor, and the port's own
 invariants (compaction equals the dense loop; a pass is a pure function
 of its key; scenes without media draw the same uniforms as before).
-The gradient pass refuses the scene: it is not held against JAX there."""
+The gradient pass on the scene is tests/test_torch_prb_scene.py's."""
 
 import jax
 import jax.numpy as jnp
@@ -20,17 +20,11 @@ from ray_tracing_tpu.ops import intersect as ji
 from ray_tracing_tpu.ops.materials import N_SCATTER_U as J_N_SCATTER_U
 from ray_tracing_tpu.ops.materials import shade as jshade
 from ray_tracing_tpu.ops.rng import ray_uniforms as jray_uniforms
-from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
 from ray_tracing_tpu_torch.ops import cuda_intersect as ci
 from ray_tracing_tpu_torch.ops import cuda_triangles as ct
 from ray_tracing_tpu_torch.ops import rng
 from ray_tracing_tpu_torch.ops.intersect import KIND_SPHERE, intersect_scene
 from ray_tracing_tpu_torch.ops.materials import N_SCATTER_U
-from ray_tracing_tpu_torch.render.prb_scalar import (
-    params_of,
-    prb_loss_and_grad_all,
-    scalar_tangent_pass,
-)
 
 torch.set_num_threads(2)
 
@@ -174,15 +168,3 @@ def test_zy_image_unchanged_by_the_medium_columns():
     matched = np.abs(mine - golden).mean()
     floor = np.abs(mine - ours.render(43).numpy()).mean()
     assert matched <= 0.6 * floor, (matched, floor)
-
-
-def test_gradient_pass_refuses_scene_json(bundles):
-    scene = bundles[0].scene
-    ro, rd, _, k_trace = camera_rays(Camera.build(bundles[0].camera, 1.0), rng.key(0), 4, 4)
-    params = params_of(scene)
-    with pytest.raises(NotImplementedError, match="triangles, media or transforms"):
-        prb_loss_and_grad_all(torch.sum, params, scene, ro, rd, k_trace, 2)
-    rad = torch.zeros_like(ro)
-    with pytest.raises(NotImplementedError, match="triangles, media or transforms"):
-        scalar_tangent_pass(params, scene, ro, rd, k_trace, 2, rad, rad,
-                            torch.zeros(ro.shape[0], dtype=torch.bool))
