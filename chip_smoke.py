@@ -116,7 +116,29 @@ Phases (any failure raises and exits non-zero):
      color gradient nonzero, the loss the image mean, K6 launched and K5
      not, the repeat equal;
  23. at an equal t the TPU's kind order decides on the card: a rect and a
-     sphere (K1) win over a triangle (K5), which wins off them.
+     sphere (K1) win over a triangle (K5), which wins off them;
+ 24. the CLI (ray_tracing_tpu_torch/cli.py) in-process on
+     data/zy_scene.json at 1024x1024 depth 20 (its flags; the file's own
+     renderer is 800x800): 4 passes in one run with --checkpoint and
+     --stats, then 2 passes and a resumed run to 4 -- checkpoint sums
+     np.array_equal, BMP files byte-equal, K1 launched alike in both and
+     once per tile and bounce run; --stats' per-pass seconds and
+     segments/s printed;
+ 25. ``python -m ray_tracing_tpu_torch.cli`` in a subprocess, 1 pass at
+     1024x1024 on the card: a PNG (decoded here, without Pillow) with a
+     --profile Chrome trace that parses as JSON (whether it names K1 is
+     printed), then an HDR that reads back finite and non-negative;
+ 26. Renderer.render_to_noise on C6 at 512x512 depth 20 (checks at 8 and
+     16 passes, target NOISE_TARGET): the image equals the sum of
+     render(fold_in(key, i)) for i < n, accumulated on the card in the
+     same order, over n, bit for bit; rel_err finite and positive; K6
+     launched;
+ 27. the gallery's C3 (scenes.earth_sphere, K1) and C4 (scenes.bunny,
+     K5) at 512x512 depth 20: K1 and K5 against their plain versions on
+     the 512x512 camera rays, one pass each finite, non-negative, with a
+     mean in C3_MEAN / C4_MEAN and deterministic, ms per pass, and the
+     kernel timed on the busiest camera tile against its plain version
+     and bound.
 Every kernel time comes with its bound (bound()): the larger of its
 operations over the float32 peak and its bytes over the memory rate,
 counted from this run's inputs (phase_a_bound: one object ray per ray
@@ -133,8 +155,10 @@ index_add_ on its rows, K3
 and K5 with those of phase 11, K6 with those of phase 16, K4 with those
 of phase 18; K2, K3 and K5 again with the launches of phase 21; K1 on
 C6's table with the launches of phase 16 and of phase 22, K2 and K6 with
-those of phase 22), the card's name and power limit, and a JSON device
-record.
+those of phase 22; K1 with those of the CLI's straight run (phase 24),
+K6 with those of render_to_noise (phase 26), K1 on C3 and K5 on C4 with
+those of their pass in phase 27), the card's name and power limit, and a
+JSON device record.
 """
 
 from __future__ import annotations
@@ -153,6 +177,13 @@ SJ_MEAN = (0.55, 0.65)  # per-pass image mean at 800^2 (JAX CPU renders: 0.58-0.
 C6_SIZE = 512  # C6 (examples/render_baselines.py:scene_c6) at its own 512^2, default depth 20
 # per-pass image mean; tests/test_torch_clusters.py holds JAX's 32^2 renders inside it
 C6_MEAN = (0.34, 0.39)
+GALLERY_SIZE = 512  # C3 and C4 (examples/render_baselines.py:scene_c3, scene_c4), default depth 20
+# per-pass image means; tests/test_torch_gallery.py holds JAX's 32^2 renders inside them
+C3_MEAN = (0.42, 0.49)
+C4_MEAN = (0.34, 0.40)
+# render_to_noise's target on C6 (phase 26): below what 16 passes reach, so
+# the run takes both checks (8, 16) and stops at max_passes
+NOISE_TARGET = 0.01
 MB_SIZE, MB_DEPTH = 384, 8  # examples/motion_blur.py at its own settings
 # per-pass image mean, from JAX CPU renders without XLA's fusion (jax.disable_jit):
 # jitted XLA-CPU fuses p = ro + rd t into an FMA, which flips the checker floor's
@@ -782,7 +813,7 @@ def sweep_stats(ct, stats, n: int, kc: int) -> str:
             f"{pairs} (ray, cluster) pairs swept by a lane that could still hit them")
 
 
-def compare_k5(ct, tr, ro, rd, what: str):
+def compare_k5(ct, tr, ro, rd, what: str, tag: str = "10"):
     """K5 against triangle_sweep_plain (dense, in 65,536-ray slices);
     returns (largest |dt| over hit rays, (t, idx, found))."""
     import torch
@@ -796,10 +827,10 @@ def compare_k5(ct, tr, ro, rd, what: str):
     plain = [ct.triangle_sweep_plain(tr.sw_table, tr.sw_origin, ro[s:s + TILE], rd[s:s + TILE],
                                      1e-3, float("inf"))
              for s in range(0, ro.shape[0], TILE)]
-    err = agree("10", f"K5 vs plain (dense), {what}", ro.shape[0], got,
+    err = agree(tag, f"K5 vs plain (dense), {what}", ro.shape[0], got,
                 [torch.cat(x) for x in zip(*plain)])
     pairs, _ = needed_work(ct, tr, ro, rd, got[0], got[2])
-    print(f"[10]   {pairs} needed (ray, cluster) pairs; "
+    print(f"[{tag}]   {pairs} needed (ray, cluster) pairs; "
           f"{sweep_stats(ct, stats, ro.shape[0], tr.sw_aabb.shape[0])}")
     check(float(got[2].float().mean()) > 0.01, f"more than 1 % of the rays hit the mesh on {what}")
     return err, got
@@ -1662,6 +1693,287 @@ def large_table_phase(ci) -> float:
     return err
 
 
+def read_png(path: str):
+    """(H, W, 3) uint8 pixels of an 8-bit RGB PNG whose rows all use
+    filter 0 (what utils/image.py writes), every chunk's CRC checked:
+    the card's machine has no Pillow."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as fh:
+        data = fh.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path} starts with the PNG signature")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        check(zlib.crc32(kind + body) & 0xFFFFFFFF == crc, f"{path}: {kind} chunk CRC")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBB", body[:10])
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    check(header is not None and header[2:] == (8, 2), f"{path} is 8-bit RGB")
+    w, h = header[:2]
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(bool((raw[:, 0] == 0).all()), f"{path}: every row has filter 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def cli_phases(smi: str, tile_size: int) -> dict:
+    """Phases 24 and 25 on the card: the port's CLI on data/zy_scene.json
+    at 1024^2 depth 20, in-process (a straight run and a resumed one,
+    bit-equal) and as ``python -m`` (PNG with a profiler trace, HDR).
+    ``tile_size`` is the renderer's at that size (phase 3).  The files go
+    to a directory under build/ that is removed afterwards.  Returns the
+    launches of the straight run."""
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="smoke_cli_", dir=os.path.join(ROOT, "build")) as work:
+        return _cli_phases(smi, tile_size, work)
+
+
+def _cli_phases(smi: str, tile_size: int, work: str) -> dict:
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from ray_tracing_tpu_torch import Renderer, RendererParam, cli, load_scene_json
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import cuda_triangles as ct
+    from ray_tracing_tpu_torch.ops import rng
+    from ray_tracing_tpu_torch.render.integrator import STAGE_BOUNCES
+    from ray_tracing_tpu_torch.utils.checkpoint import load_render
+    from ray_tracing_tpu_torch.utils.image import load_hdr
+
+    zy = os.path.join(ROOT, "data", "zy_scene.json")
+    # zy_scene.json's own renderer is 800^2; the CLI's flags set the
+    # main path's 1024^2 depth 20, which phases 3 and 7 render
+    common = ["-i", zy, "--width", str(SIZE), "--height", str(SIZE), "--max-depth", str(DEPTH),
+              "--device", "cuda"]
+    path = lambda name: os.path.join(work, name)
+
+    def run(*argv) -> str:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            check(cli.main([*common, *argv]) == 0, f"cli.main({argv}) returns 0")
+        print("".join(f"[24]   cli: {line}\n" for line in out.getvalue().splitlines()), end="")
+        return out.getvalue()
+
+    # the CLI's pass without the CLI: Renderer.render + the copy to the
+    # host, by the host clock, once before and once after its runs
+    bundle = load_scene_json(zy)
+    renderer = Renderer(RendererParam(SIZE, SIZE, max_depth=DEPTH), bundle.camera, bundle.scene,
+                        device="cuda")
+
+    def host_pass(i: int) -> float:
+        t0 = time.perf_counter()
+        renderer.render(rng.fold_in(rng.key(0), i)).cpu()
+        return time.perf_counter() - t0
+
+    bare = [host_pass(0)]
+
+    # 24. (a) four passes in one run, (b) two, then a resumed run to four
+    reset_counts()
+    t0 = time.perf_counter()
+    log_a = run("-o", path("a.bmp"), "--iterations", "4", "--checkpoint", path("a.ckpt"),
+                "--stats", path("a.json"))
+    torch.cuda.synchronize()
+    run_a_s = time.perf_counter() - t0
+    launches = {"k1": ci.LAUNCHES, "k5": ct.LAUNCHES, "k6": ct.CL_LAUNCHES}
+    reset_counts()
+    run("-o", path("b.bmp"), "--iterations", "2", "--checkpoint", path("b.ckpt"))
+    log_b = run("-o", path("b.bmp"), "--iterations", "4", "--checkpoint", path("b.ckpt"))
+    launches_b = ci.LAUNCHES
+    bare.append(host_pass(1))
+    tiles = -(-SIZE * SIZE // tile_size)
+    print(f"[24] CLI on zy {SIZE}^2 depth {DEPTH}: 4 passes in one run in {run_a_s:.2f} s; K1 "
+          f"launches {launches['k1']} ({launches['k1'] / 4} per pass; {tiles} tiles x {DEPTH} "
+          f"bounces = {tiles * DEPTH}), 2 + resumed 2: {launches_b}; K5 {launches['k5']}, K6 "
+          f"{launches['k6']}")
+    check(all(f"Iter {i} +" in log_a for i in range(1, 5)) and "Iter 4 saved" in log_a,
+          "the straight run logs Iter 1-4 and saves")
+    check("resumed at iteration 2" in log_b and "Iter 4 +" in log_b, "the second run resumes")
+    check(launches["k1"] == launches_b, "the straight and the resumed runs launch K1 alike")
+    check(4 * tiles * STAGE_BOUNCES <= launches["k1"] <= 4 * tiles * DEPTH,
+          "K1 launched once per tile and bounce run, every tile through its first stage")
+    check(launches["k5"] == launches["k6"] == 0, "zy launches no triangle sweep")
+    (ra, seed_a), (rb, seed_b) = load_render(path("a.ckpt")), load_render(path("b.ckpt"))
+    check(ra.count == rb.count == 4 and seed_a == seed_b == 0, "both checkpoints hold 4 passes")
+    check(np.array_equal(ra.sum, rb.sum), "straight and resumed checkpoint sums equal")
+    with open(path("a.bmp"), "rb") as fa, open(path("b.bmp"), "rb") as fb:
+        bmp_a, bmp_b = fa.read(), fb.read()
+    check(len(bmp_a) == 54 + SIZE * SIZE * 3 and bmp_a == bmp_b, "the two BMP files byte-equal")
+    mean = float(ra.sum.astype(np.float64).mean() / 4)
+    check(np.isfinite(ra.sum).all() and (ra.sum >= 0).all() and 0.1 < mean < 0.4,
+          f"the CLI's 4-pass mean {mean} is finite, >= 0, in 0.1-0.4")
+    with open(path("a.json")) as fh:
+        stats = json.load(fh)
+    per_pass = [(p["seconds"], p["segments"] / p["seconds"]) for p in stats["passes"]]
+    print(f"[24] checkpoints: sums np.array_equal, BMPs byte-equal ({len(bmp_a)} bytes), "
+          f"mean {mean!r}")
+    print(f"[24] card: {smi}; --stats per pass (seconds, segments/s): {per_pass!r}; summary "
+          f"{stats['summary']!r}; Renderer.render(...).cpu() by the host clock before and after "
+          f"the CLI runs: {bare!r} s")
+
+    # 25. the real entry point, as a user runs it
+    def module(*argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ray_tracing_tpu_torch.cli", *common, *argv],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        print(f"[25] python -m ray_tracing_tpu_torch.cli {' '.join(argv)}: exit "
+              f"{proc.returncode} in {wall:.1f} s; stdout {proc.stdout.strip()!r}")
+        check(proc.returncode == 0, f"the CLI exits 0 ({proc.stderr[-2000:]})")
+        check("Iter 1 +" in proc.stdout, "the CLI logs Iter 1")
+        return wall
+
+    prof = path("profile")
+    png_s = module("-o", path("out.png"), "--iterations", "1", "--profile", prof)
+    png = read_png(path("out.png"))
+    check(png.shape == (SIZE, SIZE, 3) and int(png.max()) > 0, "the PNG decodes to 1024x1024")
+    traces = [f for f in os.listdir(prof) if f.endswith(".json")]
+    check(len(traces) == 1, "one Chrome trace written")
+    t0 = time.perf_counter()
+    with open(os.path.join(prof, traces[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    parse_s = time.perf_counter() - t0
+    size_mb = os.path.getsize(os.path.join(prof, traces[0])) / 2**20
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    named = sum("phase_a_kernel" in e.get("name", "") for e in kernels)
+    print(f"[25] PNG decodes to {png.shape}; trace {size_mb:.1f} MiB, {len(events)} events parsed "
+          f"in {parse_s:.1f} s, {len(kernels)} device kernels, {named} of them phase_a_kernel "
+          f"(K1; ctypes launches the profiler {'saw' if named else 'did not see'})")
+    hdr_s = module("-o", path("out.hdr"), "--iterations", "1")
+    hdr = load_hdr(path("out.hdr"))
+    check(hdr.shape == (SIZE, SIZE, 3) and bool(np.isfinite(hdr).all())
+          and bool((hdr >= 0).all()) and float(hdr.max()) > 0, "the HDR reads back finite, >= 0")
+    print(f"[25] HDR reads back {hdr.shape}, mean {float(hdr.mean())!r}; wall {png_s:.1f} s (PNG, "
+          f"profiled) and {hdr_s:.1f} s (HDR) per process")
+    return dict(launches=launches)
+
+
+def noise_phase(smi: str) -> dict:
+    """Phase 26 on the card: Renderer.render_to_noise on C6 at 512^2 depth
+    20 (checks at 8 and 16 passes), bit-equal to the mean of the same
+    passes accumulated on the device.  Returns its launches."""
+    import numpy as np
+    import torch
+    from ray_tracing_tpu_torch import Renderer, scenes
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import cuda_triangles as ct
+    from ray_tracing_tpu_torch.ops import rng
+
+    host_scene, cam_param, param = scenes.bunny_grid()
+    renderer = Renderer(param, cam_param, host_scene, device="cuda")
+    key = rng.key(0)
+    renderer.render(rng.fold_in(key, 1000))  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    img, n, rel = renderer.render_to_noise(key, target_rel_err=NOISE_TARGET, min_passes=8,
+                                           check_every=8, max_passes=16)
+    noise_s = time.perf_counter() - t0
+    launches = {"k1": ci.LAUNCHES, "k5": ct.LAUNCHES, "k6": ct.CL_LAUNCHES}
+    t0 = time.perf_counter()
+    acc = None
+    for i in range(n):
+        acc = renderer.accumulate(rng.fold_in(key, i), acc)
+    want = acc.cpu().numpy() / n
+    manual_s = time.perf_counter() - t0
+    print(f"[26] render_to_noise on C6 {C6_SIZE}^2 depth {renderer.max_depth} (target "
+          f"{NOISE_TARGET}, checks at 8 and 16): {n} passes, rel_err {rel!r}, {noise_s:.2f} s "
+          f"({noise_s / n * 1e3:.1f} ms per pass); the same passes by accumulate {manual_s:.2f} s; "
+          f"K6 launches {launches['k6']}, K1 {launches['k1']}, K5 {launches['k5']}; card: {smi}")
+    check(img.dtype == np.float32 and img.shape == (C6_SIZE, C6_SIZE, 3), "image shape, dtype")
+    check(bool(np.isfinite(img).all()) and bool((img >= 0).all()), "image finite, >= 0")
+    check(np.array_equal(img, want), "render_to_noise equals the mean of the same passes")
+    check(np.isfinite(rel) and rel > 0, f"rel_err {rel} finite and positive")
+    check(launches["k6"] > 0 and launches["k5"] == 0, "render_to_noise on C6 launched K6")
+    print(f"[26] image == sum of render(fold_in(key, i)), i < {n}, on the device / {n}: "
+          f"np.array_equal; mean {float(img.astype(np.float64).mean())!r}")
+    return dict(launches=launches, ms=noise_s / n * 1e3)
+
+
+def gallery_phase(smi: str) -> dict:
+    """Phase 27 on the card: one pass each of C3 (scenes.earth_sphere, K1)
+    and C4 (scenes.bunny, K5) at 512^2 depth 20, finite, non-negative,
+    deterministic and in range, each kernel held against its plain
+    version on the scene's camera rays and timed on their busiest tile.
+    Returns the numbers the kernel record needs."""
+    import torch
+    from ray_tracing_tpu_torch import Renderer, scenes
+    from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import cuda_triangles as ct
+    from ray_tracing_tpu_torch.ops import rng
+
+    out = {}
+    for name, build, mean_range in (("C3", scenes.earth_sphere, C3_MEAN),
+                                    ("C4", scenes.bunny, C4_MEAN)):
+        host_scene, cam_param, param = build()
+        check((param.width, param.height, param.max_depth) == (GALLERY_SIZE, GALLERY_SIZE, None),
+              f"{name}'s own settings are 512^2 at the default depth")
+        scene = host_scene.to("cuda")
+        cam = Camera.build(cam_param, 1.0).to("cuda")
+        ro, rd, _, _ = camera_rays(cam, rng.key(0), GALLERY_SIZE, GALLERY_SIZE)
+        ro, rd = ro.contiguous(), rd.contiguous()
+        if name == "C3":
+            err, kind, _ = compare_phase_a(ci, scene.phase_a, ro, rd,
+                                           f"K1 vs plain, {GALLERY_SIZE}^2 C3 camera rays", "27")
+            hits = kind >= 0
+        else:
+            tr = scene.triangles
+            err, (_, _, hits) = compare_k5(ct, tr, ro, rd, f"{GALLERY_SIZE}^2 C4 camera rays", "27")
+        busiest = int(hits.reshape(-1, TILE).sum(dim=1).argmax())
+        t_ro = ro[busiest * TILE:(busiest + 1) * TILE].contiguous()
+        t_rd = rd[busiest * TILE:(busiest + 1) * TILE].contiguous()
+
+        renderer = Renderer(param, cam_param, host_scene, device="cuda")
+        reset_counts()
+        img = renderer.render(0)
+        torch.cuda.synchronize()
+        launches = {"k1": ci.LAUNCHES, "k5": ct.LAUNCHES, "k6": ct.CL_LAUNCHES}
+        check_images([img], GALLERY_SIZE, mean_range, "27", name)
+        check(torch.equal(img, renderer.render(0)), f"{name} render(0) twice is equal")
+        pass_ms, segments, seg_s = pass_timings(renderer, (1, 2))
+        print(f"[27] {name} {GALLERY_SIZE}^2 depth {renderer.max_depth} (tile "
+              f"{renderer.tile_size}): launches {launches}; render(0) repeated: torch.equal; "
+              f"ms per pass {pass_ms!r}; {segments} segments, {seg_s!r} segments/s; card: {smi}")
+        saved = (ci.LAUNCHES, ct.LAUNCHES, ct.CL_LAUNCHES)
+        if name == "C3":
+            check(launches["k1"] > 0 and launches["k5"] == launches["k6"] == 0,
+                  "the C3 pass launched K1 and no sweep")
+            k_ms, p_ms, k_dev, p_dev, bnd = time_k1(ci, scene.phase_a, t_ro, t_rd)
+            print(f"[27] K1 on C3's table ({scene.phase_a.rect.shape[0]} rects, "
+                  f"{scene.phase_a.sph.shape[0]} sphere), camera tile {busiest}: kernel {k_ms!r} "
+                  f"ms, plain {p_ms!r} ms (plain, kernel, kernel, plain); device per call kernel "
+                  f"{per_launch(k_dev)!r} ms, plain "
+                  f"{sum(ms for _, ms in p_dev.values()) / 20 if p_dev else 'not measured'!r} "
+                  f"ms; bound {bnd[0]!r} ms by {bnd[1]}")
+            out[name] = dict(launches=launches["k1"], err=err, ms=sum(k_ms) / 2,
+                             plain_ms=sum(p_ms) / 2, bound=bnd, pass_ms=pass_ms)
+        else:
+            check(launches["k5"] > 0 and launches["k6"] == 0, "the C4 pass launched K5, not K6")
+            plain = lambda: ct.triangle_sweep_plain(tr.sw_table, tr.sw_origin, t_ro, t_rd, 1e-3,
+                                                    float("inf"))
+            p_ms = [cuda_ms(plain, 3)]
+            k5 = time_sweep_tiles(ct, tr, ct.triangle_sweep_cuda, "triangle_sweep_kernel",
+                                  ((f"C4 camera-ray tile {busiest}", t_ro, t_rd),), "27")
+            p_ms.append(cuda_ms(plain, 3))
+            k_ms, _, bnd = next(iter(k5.values()))
+            print(f"[27] K5's plain version on that tile: {p_ms!r} ms by events (before and after)")
+            out[name] = dict(launches=launches["k5"], err=err, ms=k_ms, plain_ms=sum(p_ms) / 2,
+                             bound=bnd, pass_ms=pass_ms)
+        ci.LAUNCHES, ct.LAUNCHES, ct.CL_LAUNCHES = saved
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1803,6 +2115,9 @@ def main() -> int:
     paths = timed("phases 21-22 (scene.json and C6 fwd+bwd)", grad_path_phases, smi)
     sjg, c6g = paths["sj"], paths["c6"]
     timed("phase 23 (kind order)", kind_order_phase)
+    cli_run = timed("phases 24-25 (CLI)", cli_phases, smi, renderer.tile_size)
+    noise = timed("phase 26 (render_to_noise on C6)", noise_phase, smi)
+    gallery = timed("phase 27 (gallery C3, C4)", gallery_phase, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"ray_tracing_tpu_torch/csrc/{source}",
@@ -1854,6 +2169,19 @@ def main() -> int:
         entry("cluster_sweep (K6, serving K7's case), C6 fwd+bwd", "triangles.cu",
               "ray_tracing_tpu/ops/pallas_triangles.py:364 and :287", c6g["launches"]["k6"],
               c6["k6_err"], c6["k6_ms"], c6["k6_plain_ms"], c6["k6_bound"]),
+        # this slice's paths: the CLI on zy, render_to_noise on C6, C3 and C4
+        entry("phase_a (K1), zy CLI", *k1, cli_run["launches"]["k1"], max(err, large_err), k_ms,
+              p_ms, k1_bound),
+        entry("cluster_sweep (K6, serving K7's case), C6 render_to_noise", "triangles.cu",
+              "ray_tracing_tpu/ops/pallas_triangles.py:364 and :287", noise["launches"]["k6"],
+              c6["k6_err"], c6["k6_ms"], c6["k6_plain_ms"], c6["k6_bound"]),
+        entry("phase_a (K1), C3 forward render", *k1, gallery["C3"]["launches"],
+              gallery["C3"]["err"], gallery["C3"]["ms"], gallery["C3"]["plain_ms"],
+              gallery["C3"]["bound"]),
+        entry("triangle_sweep (K5), C4 forward render", "triangles.cu",
+              "ray_tracing_tpu/ops/pallas_triangles.py:147", gallery["C4"]["launches"],
+              gallery["C4"]["err"], gallery["C4"]["ms"], gallery["C4"]["plain_ms"],
+              gallery["C4"]["bound"]),
     ]}
     print(json.dumps(record))
     print(smi)

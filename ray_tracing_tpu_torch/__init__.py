@@ -6,11 +6,15 @@ tensor device or on an NVIDIA GPU, where the phase-A intersection of
 spheres and rects, plain or transformed (ops/cuda_intersect.py), the
 triangle sweep (ops/cuda_triangles.py) and the atlas-gradient
 scatter-add (ops/cuda_scatter.py) run as hand-written CUDA kernels.  The
-port covers the forward render of scenes of spheres, rects, triangle
-meshes, instancing transforms and constant media, and the
-full-parameter gradient pass (render/prb_scalar.py: ``params_of`` ->
-``prb_loss_and_grad_all`` -> ``scalar_tangent_pass``) of sphere and
-rect scenes; see ROADMAP.md for what is still to come.
+port covers the forward render of scenes of spheres, moving spheres,
+rects, triangle meshes, instancing transforms and constant media, and
+the full-parameter gradient pass (render/prb_scalar.py: ``params_of`` ->
+``prb_loss_and_grad_all`` -> ``scalar_tangent_pass``) of the same
+scenes, meshes, transforms and media included.  ``python -m
+ray_tracing_tpu_torch.cli`` renders a JSON scene progressively to an
+image file (utils/: image, checkpoint and stats); ``scenes`` builds the
+gallery's C3, C4 and C6 and the motion-blur example.  See ROADMAP.md
+for what is still to come.
 """
 
 from ray_tracing_tpu_torch.models.camera import Camera, CameraParam

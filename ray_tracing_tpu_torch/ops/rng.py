@@ -5,7 +5,8 @@ Every uniform is a pure function of (key, ray id, stream, column), so
 a ray's path does not depend on where it sits in the wavefront.  The
 words are bit-equal to the JAX package's: the same double PCG hash, and
 keys derived by the same threefry-2x32 ``key``/``split``, done here on
-the host in numpy.
+the host in numpy, as is ``fold_in``, which the CLI and
+``Renderer.render_to_noise`` draw every pass key from.
 
 PyTorch has no ``uint32`` add or shift on the CPU, so the hash runs in
 int64 holding values below 2**32 and masks after every operation that
@@ -75,8 +76,8 @@ def ray_time(key, ids: torch.Tensor, shutter: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------- #
-# key derivation: threefry-2x32, as jax.random.key / jax.random.split
-# (partitionable mode) compute it
+# key derivation: threefry-2x32, as jax.random.key / jax.random.split /
+# jax.random.fold_in (partitionable mode) compute it
 # ---------------------------------------------------------------------- #
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -116,3 +117,15 @@ def split(key, num: int = 2) -> np.ndarray:
             key, np.zeros(num, np.uint32), np.arange(num, dtype=np.uint32)
         )
     return np.stack([hi, lo], axis=1)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """The two words of ``jax.random.fold_in(key, data)`` for a uint32
+    ``data``: threefry(key, (0, data)).  Values outside [0, 2**32) are
+    refused, not wrapped."""
+    data = int(data)
+    if not 0 <= data <= M32:
+        raise ValueError(f"fold_in data {data} is not a uint32")
+    with np.errstate(over="ignore"):
+        hi, lo = threefry2x32(key, np.zeros(1, np.uint32), np.array([data], np.uint32))
+    return np.array([hi[0], lo[0]], np.uint32)

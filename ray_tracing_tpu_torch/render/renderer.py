@@ -3,13 +3,15 @@ PyTorch counterpart of ``ray_tracing_tpu/render/renderer.py`` (reference
 src/renderer.rs:72-332, 335-406).
 
 ``Renderer.render(key)`` produces one full-image 1-spp pass of linear
-radiance on the renderer's device; ``RenderResult`` accumulates passes
+radiance on the renderer's device, ``render_to_noise`` repeats passes
+until a noise target; ``RenderResult`` accumulates passes
 and tone-maps.  Rays are traced in fixed-size tiles, so the
 (rays x primitives) candidate grids of the plain phase A stay bounded.
 """
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 from typing import Optional
 
@@ -132,6 +134,57 @@ class Renderer:
         """Fold one pass into a device-resident sum image and return it."""
         img = self.render(key)
         return img if acc is None else acc + img
+
+    @torch.no_grad()
+    def render_to_noise(self, key, *, target_rel_err: float = 0.02, max_passes: int = 4096,
+                        min_passes: int = 8, check_every: int = 16):
+        """Render passes until the Monte-Carlo error estimate drops below
+        ``target_rel_err``.  Pass ``n`` draws ``rng.fold_in(key, n)``; the
+        per-pixel sum and sum of squares stay on the device, and every
+        ``check_every`` passes (from ``min_passes`` on) one scalar, the
+        mean over pixels of the luminance standard error over
+        (luminance + 1e-3), is read on the host.  Returns
+        ``(mean image (H, W, 3) np.float32, passes, rel_err)``."""
+        key = self._as_key(key)
+        shape = (self.param.height, self.param.width, 3)
+        s = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        s2 = torch.zeros_like(s)
+        n = 0
+        rel = float("inf")
+        while n < max_passes:
+            img = self.render(rng.fold_in(key, n))
+            s = s + img
+            s2 = s2 + img * img
+            n += 1
+            if n >= min_passes and (n % check_every == 0 or n == max_passes):
+                rel = float(_noise_criterion(s, s2, n))
+                if rel <= target_rel_err:
+                    break
+        return s.cpu().numpy() / n, n, rel
+
+    async def render_async(self, key) -> np.ndarray:
+        """Awaitable :meth:`render` (reference renderer.rs:449-476), run in
+        the event loop's default executor; returns the (H, W, 3) numpy
+        array of linear radiance."""
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(None, lambda: self.render(key).cpu().numpy())
+
+
+_LUMA = (0.2126, 0.7152, 0.0722)
+
+
+def _noise_criterion(s: torch.Tensor, s2: torch.Tensor, n: int) -> torch.Tensor:
+    """Mean over pixels of the luminance standard error over (luminance +
+    1e-3), from the float32 per-pixel sum ``s`` and sum of squares ``s2``
+    of ``n`` passes (Bessel-corrected variance), as a 0-d float32 tensor."""
+    nf = torch.tensor(float(n), dtype=torch.float32, device=s.device)
+    w = torch.tensor(_LUMA, dtype=torch.float32, device=s.device)
+    mean = s / nf
+    var = torch.clamp(s2 / nf - mean * mean, min=0.0) * nf / torch.clamp(nf - 1, min=1.0)
+    lum = (mean * w).sum(-1)
+    lvar = (var * w ** 2).sum(-1)
+    stderr = torch.sqrt(lvar / nf)
+    return (stderr / (lum + 1e-3)).mean()
 
 
 class RenderResult:

@@ -1,6 +1,14 @@
 """Programmatic scenes of the JAX package's examples, built with the
 port's own compiler:
 
+* :func:`earth_sphere` -- configuration C3 of
+  ``examples/render_baselines.py:scene_c3``: the earth-textured sphere
+  (``data/earthmap.npy``, read without Pillow) on a ground rect under an
+  important rect light and a sky, rendered at 512^2 (K1);
+* :func:`bunny` -- configuration C4 of
+  ``examples/render_baselines.py:scene_c4``: ``data/bunny.obj`` (4,968
+  triangles, so the dense sweep K5) on a ground rect under a sky,
+  rendered at 512^2;
 * :func:`bunny_grid` -- configuration C6 of
   ``examples/render_baselines.py:scene_c6``: a 4x4 grid of
   ``data/bunny.obj`` (79,488 triangles, the only scene above
@@ -24,11 +32,39 @@ import os
 import numpy as np
 
 from ray_tracing_tpu_torch.models.camera import CameraParam
-from ray_tracing_tpu_torch.models.compiler import SceneBuilder
+from ray_tracing_tpu_torch.models.compiler import SceneBuilder, load_image
 from ray_tracing_tpu_torch.models.mesh import load_triangles
 from ray_tracing_tpu_torch.render.renderer import RendererParam
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+
+
+def earth_sphere():
+    """C3: a unit sphere with the earth image texture resting on a ground
+    rect, lit by an important 3x3 rect light at y = 4; 512^2 at the
+    renderer's default depth."""
+    b = SceneBuilder(background=(0.7, 0.8, 1.0))
+    earth = b.add_lambertian(b.add_texture_image(load_image(os.path.join(DATA, "earthmap.jpg"))))
+    ground = b.add_lambertian(b.add_texture_solid((0.6, 0.6, 0.6)))
+    light = b.add_diffuse_light(b.add_texture_solid((6.0, 6.0, 6.0)))
+    b.add_sphere((0, 1.0, 0), 1.0, earth)
+    b.add_rect("zx", -50, 50, -50, 50, 0.0, ground, positive=True)
+    b.add_rect("zx", -1.5, 1.5, -1.5, 1.5, 4.0, light, positive=False, important=True)
+    cam = CameraParam((0, 1.2, 4.0), (0, 1.0, 0), 40)
+    return b.build(), cam, RendererParam(512, 512)
+
+
+def bunny():
+    """C4: one white lambertian bunny on a ground rect at y = 0.033, sky
+    background; 512^2 at the renderer's default depth."""
+    b = SceneBuilder(background=(0.7, 0.8, 1.0))
+    white = b.add_lambertian(b.add_texture_solid((0.73, 0.73, 0.73)))
+    ground = b.add_lambertian(b.add_texture_solid((0.4, 0.5, 0.4)))
+    pts, nrm, uvs = load_triangles(os.path.join(DATA, "bunny.obj"))
+    b.add_mesh_triangles(pts, nrm, uvs, white)
+    b.add_rect("zx", -5, 5, -5, 5, 0.033, ground, positive=True)
+    cam = CameraParam((-0.2, 0.25, 0.35), (-0.02, 0.1, 0.0), 35)
+    return b.build(), cam, RendererParam(512, 512)
 
 
 def bunny_grid():
