@@ -138,7 +138,35 @@ Phases (any failure raises and exits non-zero):
      the 512x512 camera rays, one pass each finite, non-negative, with a
      mean in C3_MEAN / C4_MEAN and deterministic, ms per pass, and the
      kernel timed on the busiest camera tile against its plain version
-     and bound.
+     and bound;
+ 28. the train step of parallel/mesh.py: make_prb_train_step_all_direct
+     on zy at 1024x1024 depth 20, one process, from wall colors at 0.5
+     toward a target rendered at the true parameters under the step's
+     own key (lr TRAIN_LR): one step on every leaf, finite, K1 launched
+     and K2 once per tile, equal to params - lr g with g from
+     prb_loss_and_grad_all called tile by tile by hand (the color-linear
+     leaves torch.equal, fuzz and IR to rtol 1e-4), and the loss change
+     its color-linear and its whole update make; a witness of the fuzz
+     and IR gradients (scalar_witness): the per-pixel derivatives of
+     the loss by forward AD add up to the step's, and at least
+     WITNESS_PIXELS of the pixels with a nonzero one meet the central
+     difference of their term at h = 2e-6, 1e-4 or the step's own,
+     with the loss's rise on either side of the step and IR's with the
+     reflect/refract choice held; then three SGD steps of the
+     color-linear leaves (tiled_loss_and_grad with scalar_rows=((),
+     ()): fuzz and IR held), every loss finite and the third below the
+     first; ms per step (CUDA events) and segments/s;
+ 29. the same step under distributed.initialize("nccl", world_size=1,
+     rank=0, a file:// rendezvous under build/): its parameters and loss
+     torch.equal to phase 28's first step;
+ 30. the autograd surface: prb_radiance_all on the same rays, the same
+     L2 loss, loss.backward() -- the loss equal to the direct step's and
+     the gradients to phase 28's by-hand pass (color-linear leaves
+     torch.equal, fuzz and IR to rtol 1e-4); forward and backward ms;
+     one make_prb_train_step_all step against phase 28's first step;
+ 31. the fit examples (ray_tracing_tpu_torch/examples/) on the card at
+     reduced steps: each prints its final line, fit_geometry's error
+     falls below its initial error and fit_materials' loss falls.
 Every kernel time comes with its bound (bound()): the larger of its
 operations over the float32 peak and its bytes over the memory rate,
 counted from this run's inputs (phase_a_bound: one object ray per ray
@@ -157,8 +185,9 @@ of phase 18; K2, K3 and K5 again with the launches of phase 21; K1 on
 C6's table with the launches of phase 16 and of phase 22, K2 and K6 with
 those of phase 22; K1 with those of the CLI's straight run (phase 24),
 K6 with those of render_to_noise (phase 26), K1 on C3 and K5 on C4 with
-those of their pass in phase 27), the card's name and power limit, and a
-JSON device record.
+those of their pass in phase 27, K1 and K2 with those of phase 28's
+full-parameter step), the card's name and power limit, and a JSON device
+record.
 """
 
 from __future__ import annotations
@@ -390,39 +419,18 @@ def motion_rays(n: int, seed: int):
 
 
 def grad_pass(params, scene, ro, rd, k_trace, tile_loss, depth: int = DEPTH, tile: int = TILE):
-    """One full-parameter fwd+bwd pass with the protocol of bench.py:172-231:
-    tiles under one trace key with ids_base, prb_loss_and_grad_all(...,
+    """One full-parameter fwd+bwd pass by the library's tiled protocol
+    (parallel/mesh.py:tiled_loss_and_grad, bench.py:172-231's): tiles
+    under one trace key with ids_base, prb_loss_and_grad_all(...,
     defer_scalars=True) per tile, one global scalar_tangent_pass.  The
-    loss is the summed per-tile losses over n*3 and every gradient is
-    scaled by 1/(n*3).  ``tile_loss(rad, rows)`` is the loss of the tile's
-    rows.  Returns (loss tensor, AllParams)."""
-    import torch
-    from ray_tracing_tpu_torch.render.prb_scalar import (
-        AllParams,
-        prb_loss_and_grad_all,
-        scalar_tangent_pass,
-    )
+    loss is the summed per-tile losses over n*3, so every gradient is
+    scaled by 1/(n*3).  ``tile_loss(rad, rows)`` is the loss of the
+    tile's rows.  Returns (loss tensor, AllParams)."""
+    from ray_tracing_tpu_torch.parallel.mesh import tiled_loss_and_grad
 
-    n = ro.shape[0]
-    scale = 1.0 / (n * 3)
-    loss, grads, rads, gcs, touches = 0.0, None, [], [], []
-    for start in range(0, n, tile):
-        rows = slice(start, min(start + tile, n))
-        l_i, g_i, (rad, g_ray, touched) = prb_loss_and_grad_all(
-            lambda r, _rows=rows: tile_loss(r, _rows), params, scene, ro[rows], rd[rows],
-            k_trace, depth, ids_base=start, defer_scalars=True,
-        )
-        loss = loss + l_i
-        grads = g_i if grads is None else AllParams(*(a + b for a, b in zip(grads, g_i)))
-        rads.append(rad)
-        gcs.append(g_ray)
-        touches.append(touched)
-    gfuzz, gir = scalar_tangent_pass(
-        params, scene, ro, rd, k_trace, depth, torch.cat(rads), torch.cat(gcs) * scale,
-        torch.cat(touches), tangent_cap=65536,
-    )
-    grads = AllParams(*(x * scale for x in grads))._replace(fuzz=gfuzz, ir=gir)
-    return loss * scale, grads
+    scale = 1.0 / (ro.shape[0] * 3)
+    return tiled_loss_and_grad(lambda rad, rows: tile_loss(rad, rows) * scale, params, scene,
+                               ro, rd, k_trace, depth, tile_size=tile)
 
 
 def split_pass(params, scene, ro, rd, k_trace, depth: int = DEPTH, tile: int = TILE):
@@ -1974,6 +1982,365 @@ def gallery_phase(smi: str) -> dict:
     return out
 
 
+# the learning rate of phase 28's SGD steps, from CPU runs of the same
+# fit at 64^2 depth 20 (PERF.md): the loss fell over four steps at 0.05
+# and 0.1 and rose at 0.2 and 0.5.  At 1024^2 the fuzz and IR updates
+# raise the loss; phase 28's witness shows why
+TRAIN_LR = 0.05
+
+
+def elapsed_ms(fn):
+    """(fn()'s result, its milliseconds between CUDA events)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def leaves_report(tag: str, what: str, got, want, rtol: float) -> None:
+    """Check the color-linear leaves torch.equal and fuzz/IR within
+    ``rtol``; print the largest difference of each leaf."""
+    import torch
+    from ray_tracing_tpu_torch.render.prb_scalar import AllParams
+
+    diff = {f: float((getattr(got, f) - getattr(want, f)).abs().max()) if getattr(got, f).numel()
+            else 0.0 for f in AllParams._fields}
+    print(f"[{tag}] {what}: max |d| per leaf {diff}")
+    for f in AllParams._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if f in COLOR_LINEAR:
+            check(torch.equal(a, b), f"{what}: the {f} leaf torch.equal")
+        else:
+            check(torch.allclose(a, b, rtol=rtol, atol=1e-8), f"{what}: {f} within rtol {rtol}")
+
+
+# the witness of phase 28: fuzz and IR steps of 2e-6 and 1e-4 besides the
+# SGD step's own; the largest relative difference at which a pixel's
+# central difference counts as its derivative; the least share of the
+# pixels with a nonzero derivative that must count so at one of the steps
+WITNESS_STEPS = (2e-6, 1e-4)
+WITNESS_RTOL = 0.1
+WITNESS_PIXELS = 0.8
+
+
+def scalar_witness(scene, ro, rd, k_trace, depth: int, fit, target, grads, lr: float) -> None:
+    """Phase 28's independent witness of the fuzz and IR gradients: per
+    pixel, the derivative of its loss term by forward AD of the same
+    trace (trace_compacted under torch.autograd.forward_ad) against the
+    central difference of the same term in renders at theta +- h, for h
+    in WITNESS_STEPS and the SGD step's own lr |g|.  The loss is the
+    step's, sum((rad - target)^2) / (3 n) at the step's key.
+
+    Checks that the per-pixel derivatives add up to the step's gradient
+    and that at least WITNESS_PIXELS of the pixels with a nonzero
+    derivative meet their central difference within WITNESS_RTOL at one
+    of the steps.  Prints, at each h, the central difference of the
+    whole loss, the pixels that meet theirs and the share of sum |dL_i|
+    they carry, the loss's rise on either side, and the ten largest
+    terms beside their central differences; at the SGD step IR is also
+    moved with the reflect/refract choice held at the unmoved IR (the
+    Schlick reflectance fed the unmoved index), to show how much of the
+    rise the choice makes.  The whole loss's central difference is not
+    held to g: at a fixed key a moved fuzz or IR also flips paths, whose
+    jumps no derivative sees."""
+    import contextlib
+
+    import torch
+    import torch.autograd.forward_ad as fwAD
+    from ray_tracing_tpu_torch.ops import sampling as smp
+    from ray_tracing_tpu_torch.render.integrator import trace_compacted
+    from ray_tracing_tpu_torch.render.prb_scalar import _active_rows, _with_all
+
+    n = ro.shape[0]
+
+    def render(p):
+        s = _with_all(scene, p)
+        return torch.cat([trace_compacted(s, ro[i:i + TILE], rd[i:i + TILE], k_trace, depth,
+                                          ids_base=i) for i in range(0, n, TILE)]).double()
+
+    def tangent(p):
+        s = _with_all(scene, p)
+        parts = []
+        for i in range(0, n, TILE):
+            t = fwAD.unpack_dual(trace_compacted(s, ro[i:i + TILE], rd[i:i + TILE], k_trace,
+                                                 depth, ids_base=i)).tangent
+            parts.append(torch.zeros_like(ro[i:i + TILE]) if t is None else t)
+        return torch.cat(parts).double()
+
+    @contextlib.contextmanager
+    def choice_held(ir0: float):
+        schlick = smp.schlick_reflectance
+        smp.schlick_reflectance = lambda cosine, ratio: schlick(cosine, torch.full_like(ratio, ir0))
+        try:
+            yield
+        finally:
+            smp.schlick_reflectance = schlick
+
+    t = target.reshape(n, 3).double()
+    r0 = render(fit) - t
+    l0 = (r0 * r0).sum(1)
+    metal, glass = _active_rows(scene)
+    for field, rows in (("fuzz", metal), ("ir", glass)):
+        check(len(rows) == 1, f"zy has one {field} row")
+        row = int(rows[0])
+        base = getattr(fit, field)
+        g = float(getattr(grads, field)[row])
+        with fwAD.dual_level():
+            unit = torch.zeros_like(base)
+            unit[row] = 1.0
+            jac = tangent(fit._replace(**{field: fwAD.make_dual(base, unit)}))
+        dl = (2.0 * r0 * jac).sum(1) / (3 * n)  # each pixel's term of dL/dtheta
+        g_sum = float(dl.sum())
+        print(f"[28] {field}: step gradient {g!r}, per-pixel forward-AD derivatives summed "
+              f"{g_sum!r}; {int((dl != 0).sum())} pixels with a nonzero term, the 10 largest "
+              f"carry {float(dl.abs().topk(10).values.sum() / dl.abs().sum())!r} of sum |dL_i|")
+        check(abs(g_sum - g) <= 1e-3 * abs(g) + 1e-9,
+              f"the {field} gradient is the sum of the per-pixel derivatives (rtol 1e-3)")
+        agreed = torch.zeros_like(dl, dtype=torch.bool)
+        top = dl.abs().topk(10).indices
+        step_h = lr * abs(g)
+        for h in (*WITNESS_STEPS, step_h):
+            variants = [("", contextlib.nullcontext)]
+            if field == "ir" and h == step_h:
+                variants.append((", reflect/refract choice held",
+                                 lambda: choice_held(float(base[row]))))
+            for label, ctx in variants:
+                moved = []
+                for sign in (1.0, -1.0):
+                    p = base.clone()
+                    p[row] = base[row] + sign * h
+                    with ctx():
+                        moved.append((((render(fit._replace(**{field: p})) - t) ** 2).sum(1),
+                                      float(p[row] - base[row])))
+                (lp, hp), (lm, hm) = moved
+                hh = (hp - hm) / 2
+                fd = (lp - lm) / (3 * n * 2 * hh)
+                agree = (dl != 0) & ((fd - dl).abs() <= WITNESS_RTOL * dl.abs())
+                if not label:
+                    agreed |= agree
+                share = float(dl[agree].abs().sum() / dl.abs().sum())
+                rise = (float((lp - l0).sum()) / (3 * n), float((lm - l0).sum()) / (3 * n))
+                print(f"[28] {field} +-{hh!r}{label}: central difference of the loss "
+                      f"{float(fd.sum())!r} (g {g!r}); {int(agree.sum())} pixels within "
+                      f"{WITNESS_RTOL} of their derivative, carrying {share!r} of sum |dL_i| and "
+                      f"{float(dl[agree].sum())!r} of g (their central difference "
+                      f"{float(fd[agree].sum())!r}); loss rise at +h {rise[0]!r}, at -h {rise[1]!r}"
+                      + (f" (the SGD update is the {'-' if g > 0 else '+'}h side)" if h == step_h
+                         else ""))
+                if not label:
+                    print(f"[28]   the ten largest terms {[f'{x:.3g}' for x in dl[top].tolist()]}, "
+                          f"their central differences {[f'{x:.3g}' for x in fd[top].tolist()]}")
+        live, met = int((dl != 0).sum()), int(agreed.sum())
+        print(f"[28] {field}: {met} of {live} pixels meet their central difference within "
+              f"{WITNESS_RTOL} at some h, carrying "
+              f"{float(dl[agreed].abs().sum() / dl.abs().sum())!r} of sum |dL_i|")
+        check(met >= WITNESS_PIXELS * live,
+              f"at least {WITNESS_PIXELS} of the pixels with a nonzero {field} derivative meet "
+              "their central difference")
+
+
+def train_phases(smi: str, size: int = SIZE, depth: int = DEPTH, dev: str = "cuda") -> dict:
+    """Phases 28-30: the train steps of parallel/mesh.py and the autograd
+    surface on zy at ``size``^2 depth ``depth``, from perturbed wall
+    colors toward a target rendered at the true parameters under the
+    steps' own key.  Returns the numbers the kernel record needs."""
+    import numpy as np
+    import torch
+    from ray_tracing_tpu_torch import load_scene_json
+    from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
+    from ray_tracing_tpu_torch.models.scene import MAT_DIFFUSE_LIGHT
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import cuda_scatter as cs
+    from ray_tracing_tpu_torch.ops import rng
+    from ray_tracing_tpu_torch.parallel import distributed
+    from ray_tracing_tpu_torch.parallel.mesh import (
+        make_mesh,
+        make_prb_train_step_all,
+        make_prb_train_step_all_direct,
+        tiled_loss_and_grad,
+    )
+    from ray_tracing_tpu_torch.render.prb_scalar import (
+        AllParams,
+        _with_all,
+        params_of,
+        prb_loss_and_grad_all,
+        prb_radiance_all,
+        scalar_tangent_pass,
+    )
+    from ray_tracing_tpu_torch.render.renderer import render_pass
+
+    bundle = load_scene_json(os.path.join(ROOT, "data", "zy_scene.json"))
+    scene = bundle.scene.to(dev)
+    cam = Camera.build(bundle.camera, 1.0).to(dev)
+    n = size * size
+    tiles = -(-n // TILE)
+    key = rng.key(0)
+    true = params_of(scene)
+    mat = scene.materials
+    pinned = torch.zeros_like(true.color[:, :1], dtype=torch.bool)
+    pinned[mat.tex[mat.mtype == MAT_DIFFUSE_LIGHT].long()] = True
+    fit = true._replace(color=torch.where(pinned, true.color, 0.5))
+    target = render_pass(scene, cam, key, width=size, height=size, max_depth=depth,
+                         antialias=True, tile_size=TILE)
+    kw = dict(width=size, height=size, max_depth=depth, lr=TRAIN_LR)
+
+    # 28. the direct step, one process: step 1 on every leaf, held
+    # against params - lr g by hand
+    ro, rd, _, k_trace = camera_rays(cam, key, size, size, True)
+    step = make_prb_train_step_all_direct(cam, scene, mesh=make_mesh(dev), **kw)
+    reset_counts()
+    (first, loss1), step1_ms = elapsed_ms(lambda: step(fit, scene, key, target))
+    launches = {"k1": ci.LAUNCHES, "k2": cs.LAUNCHES}
+    segments = traced_segments(scene, ro, rd, k_trace, depth)
+    print(f"[28] card: {smi}")
+    print(f"[28] zy {size}^2 depth {depth} make_prb_train_step_all_direct, lr {TRAIN_LR}, every "
+          f"leaf: step 1 loss {float(loss1)!r} in {step1_ms!r} ms (with its warm-up); "
+          f"{segments} traced segments per step; launches {launches}")
+    check(bool(torch.isfinite(loss1)), "the step's loss is finite")
+    check(launches["k1"] > 0 and launches["k2"] == tiles, "step 1 launched K1, K2 once per tile")
+    t_flat, weight = target.reshape(n, 3), torch.ones((n,), device=ro.device)
+    grads, rads, cots, touches = None, [], [], []
+    for start in range(0, n, TILE):
+        rows = slice(start, min(start + TILE, n))
+        _, g_t, (rad, cot, touched) = prb_loss_and_grad_all(
+            lambda r, _rows=rows: torch.sum(weight[_rows, None] * (r - t_flat[_rows]) ** 2)
+            / (n * 3), fit, scene, ro[rows], rd[rows], k_trace, depth, ids_base=start,
+            defer_scalars=True)
+        grads = g_t if grads is None else AllParams(*(a + b for a, b in zip(grads, g_t)))
+        rads.append(rad)
+        cots.append(cot)
+        touches.append(touched)
+    gfuzz, gir = scalar_tangent_pass(fit, scene, ro, rd, k_trace, depth, torch.cat(rads),
+                                     torch.cat(cots), torch.cat(touches), tangent_cap=TILE)
+    direct = grads._replace(fuzz=gfuzz, ir=gir)
+    by_hand = AllParams(*(p - TRAIN_LR * g for p, g in zip(fit, direct)))
+    leaves_report("28", "step 1 against params - lr g by hand", first, by_hand, 1e-4)
+
+    # what the step's update does to the loss at this key: the
+    # color-linear leaves alone and every leaf (fuzz and IR alone: the
+    # witness below, whose step h is the update's)
+    def loss_at(p):
+        img = render_pass(_with_all(scene, p), cam, key, width=size, height=size,
+                          max_depth=depth, antialias=True, tile_size=TILE)
+        return float(torch.mean((img - target) ** 2))
+
+    moves = {"color-linear": COLOR_LINEAR, "every leaf": AllParams._fields}
+    change = {name: loss_at(fit._replace(**{f: getattr(first, f) for f in fields}))
+              - float(loss1) for name, fields in moves.items()}
+    print(f"[28] loss change of step 1's update: {change}")
+    scalar_witness(scene, ro, rd, k_trace, depth, fit, target, direct, TRAIN_LR)
+
+    # three SGD steps of the color-linear leaves, fuzz and IR held (no
+    # tangent pass), which must descend
+    def color_step(p):
+        loss, g = tiled_loss_and_grad(
+            lambda rad, rows: torch.sum((rad - t_flat[rows]) ** 2) / (n * 3), p, scene, ro, rd,
+            k_trace, depth, scalar_rows=((), ()))
+        return AllParams(*(x - TRAIN_LR * gx for x, gx in zip(p, g))), loss
+
+    reset_counts()
+    params, losses, step_ms = fit, [], []
+    for _ in range(3):
+        (params, loss), ms = elapsed_ms(lambda p=params: color_step(p))
+        losses.append(float(loss))
+        step_ms.append(ms)
+    launches_c = {"k1": ci.LAUNCHES, "k2": cs.LAUNCHES}
+    mean_ms = sum(step_ms) / len(step_ms)
+    print(f"[28] three color-linear steps: losses {losses!r}; ms per step {step_ms!r}: "
+          f"{segments / (mean_ms / 1e3)!r} segments/s; launches {launches_c}")
+    check(all(np.isfinite(losses)), "every train-step loss is finite")
+    check(losses[2] < losses[0], "the third step's loss is below the first's")
+    check(launches_c["k2"] == 3 * tiles, "K2 once per tile in each step")
+    check(torch.equal(params.fuzz, fit.fuzz) and torch.equal(params.ir, fit.ir),
+          "scalar_rows=((), ()) holds fuzz and IR")
+
+    # 29. the same step under a one-rank NCCL process group
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    rendezvous = os.path.join(ROOT, "build", f"nccl_init_{os.getpid()}")
+    backend = "nccl" if dev == "cuda" else "gloo"
+    distributed.initialize(backend, init_method=f"file://{rendezvous}", world_size=1, rank=0)
+    try:
+        mesh = distributed.global_mesh(dev)
+        check(mesh.collective and mesh.world == 1, "a one-rank process group")
+        step_nccl = make_prb_train_step_all_direct(cam, scene, mesh=mesh, **kw)
+        (p_nccl, l_nccl), ms_nccl = elapsed_ms(lambda: step_nccl(fit, scene, key, target))
+        info = distributed.process_info()
+    finally:
+        torch.distributed.destroy_process_group()
+        if os.path.exists(rendezvous):
+            os.remove(rendezvous)
+    same = {f: bool(torch.equal(a, b)) for f, a, b in zip(AllParams._fields, p_nccl, first)}
+    print(f"[29] {info}: one step in {ms_nccl!r} ms, loss {float(l_nccl)!r} (phase 28: "
+          f"{float(loss1)!r}); parameters torch.equal to phase 28's first step per leaf {same}")
+    check(float(l_nccl) == float(loss1) and all(same.values()),
+          "the step under NCCL equals phase 28's first step")
+
+    # 30. the autograd surface: forward, loss.backward(), against the
+    # direct pass at the same key with the same loss
+    leaves = AllParams(*(p.detach().requires_grad_(True) for p in fit))
+    rad, fwd_ms = elapsed_ms(lambda: prb_radiance_all(leaves, scene, ro, rd, k_trace, depth))
+    loss = torch.sum((rad - t_flat) ** 2) / (n * 3)
+    _, bwd_ms = elapsed_ms(loss.backward)
+    surface = AllParams(*(x.grad for x in leaves))
+    print(f"[30] prb_radiance_all on zy {size}^2 depth {depth}: forward {fwd_ms!r} ms, "
+          f"backward {bwd_ms!r} ms; loss {float(loss.detach())!r} (direct, summed by tile: "
+          f"{float(loss1)!r})")
+    check(abs(float(loss.detach()) - float(loss1)) <= 1e-5 * float(loss1),
+          "the surface's loss equals the direct step's to rtol 1e-5")
+    leaves_report("30", "loss.backward() against the direct pass", surface, direct, 1e-4)
+    step_ad = make_prb_train_step_all(cam, scene, mesh=make_mesh(dev), **kw)
+    (p_ad, l_ad), ad_ms = elapsed_ms(lambda: step_ad(fit, scene, key, target))
+    diff = {f: float((a - b).abs().max()) for f, a, b in zip(AllParams._fields, p_ad, first)}
+    print(f"[30] make_prb_train_step_all: one step {ad_ms!r} ms, loss {float(l_ad)!r}; max |d| "
+          f"per leaf against phase 28's first step {diff}")
+    check(abs(float(l_ad) - float(loss1)) <= 1e-6 * float(loss1)
+          and all(torch.allclose(a, b, rtol=1e-4, atol=1e-8) for a, b in zip(p_ad, first)),
+          "the autograd-surface step equals the direct step")
+    return dict(launches=launches, step1_ms=step1_ms, step_ms=step_ms, fwd_ms=fwd_ms,
+                bwd_ms=bwd_ms, ad_ms=ad_ms)
+
+
+def examples_phase(smi: str, dev: str = "cuda") -> None:
+    """Phase 31: the three fit examples on the card at reduced steps,
+    in-process (their main), each reaching its final line:
+    fit_geometry's error below its initial error, fit_materials' loss
+    falling."""
+    import contextlib
+    import io
+    import re
+
+    from ray_tracing_tpu_torch.examples import fit_albedo, fit_geometry, fit_materials
+
+    runs = (
+        (fit_albedo, ["--steps", "10"], "final per-texture error"),
+        (fit_materials, ["--steps", "12"], "final |fuzz err|"),
+        # at its own 24^2 the fit first moves away (26 steps: 0.16 -> 0.26 in
+        # both packages on the CPU); at 16^2 eight steps bring it closer
+        (fit_geometry, ["--steps", "8", "--size", "16"], "final geometry error"),
+    )
+    for module, args, expect in runs:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = module.main([*args, "--device", dev])
+        wall = time.perf_counter() - t0
+        text = out.getvalue()
+        name = module.__name__.rsplit(".", 1)[1]
+        print(f"[31] {name} {' '.join(args)} on {dev}: {wall:.1f} s; card: {smi}")
+        for line in text.strip().splitlines():
+            print(f"[31]   {line}")
+        check(expect in text, f"{name} printed its final line")
+        if module is fit_geometry:
+            check(result == 0, "fit_geometry's error fell below its initial error")
+        if module is fit_materials:
+            losses = [float(x) for x in re.findall(r"^step +\d+ loss ([0-9.]+)", text, re.M)]
+            check(len(losses) >= 2 and losses[-1] < losses[0], "fit_materials' loss falls")
+
+
 def main() -> int:
     import torch
 
@@ -2118,6 +2485,8 @@ def main() -> int:
     cli_run = timed("phases 24-25 (CLI)", cli_phases, smi, renderer.tile_size)
     noise = timed("phase 26 (render_to_noise on C6)", noise_phase, smi)
     gallery = timed("phase 27 (gallery C3, C4)", gallery_phase, smi)
+    train = timed("phases 28-30 (train steps, autograd surface)", train_phases, smi)
+    timed("phase 31 (fit examples)", examples_phase, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"ray_tracing_tpu_torch/csrc/{source}",
@@ -2182,6 +2551,12 @@ def main() -> int:
               "ray_tracing_tpu/ops/pallas_triangles.py:147", gallery["C4"]["launches"],
               gallery["C4"]["err"], gallery["C4"]["ms"], gallery["C4"]["plain_ms"],
               gallery["C4"]["bound"]),
+        # this slice's path: three direct train steps on zy (phase 28)
+        entry("phase_a (K1), zy train steps", *k1, train["launches"]["k1"], max(err, large_err),
+              k_ms, p_ms, k1_bound),
+        entry("scatter_add (K2), zy train steps", "scatter.cu",
+              "ray_tracing_tpu/ops/pallas_scatter.py:82", train["launches"]["k2"], grad["k2_err"],
+              grad["k2_ms"], grad["k2_plain_ms"], grad["k2_bound"], grad["k2_library_ms"]),
     ]}
     print(json.dumps(record))
     print(smi)

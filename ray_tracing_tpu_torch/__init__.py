@@ -10,7 +10,10 @@ port covers the forward render of scenes of spheres, moving spheres,
 rects, triangle meshes, instancing transforms and constant media, and
 the full-parameter gradient pass (render/prb_scalar.py: ``params_of`` ->
 ``prb_loss_and_grad_all`` -> ``scalar_tangent_pass``) of the same
-scenes, meshes, transforms and media included.  ``python -m
+scenes, meshes, transforms and media included, and its autograd face
+``prb_radiance_all`` (``loss.backward()``).  ``parallel`` splits the
+rays of a render pass or a train step over a ``torch.distributed``
+process group; ``examples`` holds the three fit scripts.  ``python -m
 ray_tracing_tpu_torch.cli`` renders a JSON scene progressively to an
 image file (utils/: image, checkpoint and stats); ``scenes`` builds the
 gallery's C3, C4 and C6 and the motion-blur example.  See ROADMAP.md

@@ -219,14 +219,16 @@ def trace_subset_dot(scene: SceneData, ro, rd, key, max_depth: int, g, alive0, i
     so the gathered subset replays its paths bit-exactly.  Rays with
     ``alive0`` unset accumulate nothing.  The final dot
     gathers ``g`` by each ray's tracked input position.  Every operation
-    takes forward-mode tangents (``torch.autograd.forward_ad``)."""
+    takes forward-mode tangents (``torch.autograd.forward_ad``).  The dot
+    sums in float64, so its value (and tangent) does not depend on the
+    order of the rays (the dense replay sums them in input order)."""
     rad, thr, ro, rd, _, _, segments = _initial_carry(ro, rd, 0)
     carry = (rad, thr, ro, rd, alive0, ids0.to(torch.int64), segments)
     (rad, thr, _, _, alive, _, _), pos = trace_stages(
         scene, key, max_depth, carry, count_segments=False
     )
     rad = _finish(scene, rad, thr, alive)
-    return (g[pos] * rad).sum()
+    return (g[pos] * rad).sum(dtype=torch.float64)
 
 
 def trace_compacted(scene: SceneData, ro, rd, key, max_depth: int, *,
