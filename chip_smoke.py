@@ -118,16 +118,18 @@ Phases (any failure raises and exits non-zero):
  23. at an equal t the TPU's kind order decides on the card: a rect and a
      sphere (K1) win over a triangle (K5), which wins off them;
  24. the CLI (ray_tracing_tpu_torch/cli.py) in-process on
-     data/zy_scene.json at 1024x1024 depth 20 (its flags; the file's own
-     renderer is 800x800): 4 passes in one run with --checkpoint and
-     --stats, then 2 passes and a resumed run to 4 -- checkpoint sums
+     data/zy_scene.json at 1024x1024 depth CLI_DEPTH (its flags; the
+     file's own renderer is 800x800 depth 20): 4 passes in one run with
+     --checkpoint and --stats, then 2 passes and a resumed run to 4 --
+     checkpoint sums
      np.array_equal, BMP files byte-equal, K1 launched alike in both and
      once per tile and bounce run; --stats' per-pass seconds and
      segments/s printed;
  25. ``python -m ray_tracing_tpu_torch.cli`` in a subprocess, 1 pass at
-     1024x1024 on the card: a PNG (decoded here, without Pillow) with a
-     --profile Chrome trace that parses as JSON (whether it names K1 is
-     printed), then an HDR that reads back finite and non-negative;
+     1024x1024 depth CLI_DEPTH on the card: a PNG (decoded here, without
+     Pillow) with a --profile Chrome trace that parses as JSON (whether it
+     names K1 is printed), then an HDR that reads back finite and
+     non-negative;
  26. Renderer.render_to_noise on C6 at 512x512 depth 20 (checks at 8 and
      16 passes, target NOISE_TARGET): the image equals the sum of
      render(fold_in(key, i)) for i < n, accumulated on the card in the
@@ -166,7 +168,42 @@ Phases (any failure raises and exits non-zero):
      one make_prb_train_step_all step against phase 28's first step;
  31. the fit examples (ray_tracing_tpu_torch/examples/) on the card at
      reduced steps: each prints its final line, fit_geometry's error
-     falls below its initial error and fit_materials' loss falls.
+     falls below its initial error and fit_materials' loss falls;
+ 32. the weekend (ray_tracing_tpu_torch/examples/weekend_scene.py at
+     WEEKEND_SEED: 485 spheres, 0 rects, no light) built with the port's
+     editor, written to its project JSON and opened again, generate(doc)
+     -> v4ray.Renderer(..., device="cuda") -> await render() at
+     1200x800 depth 50: K1 against its plain version on its 485-sphere,
+     0-rect table for the 960,000 camera rays, the busiest camera tile
+     and 65,536 secondary rays off its sphere hits (found, kind, idx
+     equal, t bit-equal); three façade passes (a warm-up and two timed
+     with CUDA events) driven with every count at 0 just before: finite,
+     non-negative, mean in WEEKEND_MEAN, K1 launched and no other phase-A
+     kernel; render_with_stats at the third pass's key, at the card's
+     tile (65,536) and at the CPU rule's (8,192), each torch.equal to it,
+     timed, with the same segments (segments/s); K1 timed on the camera
+     and secondary tiles against its plain version and its operations
+     bound; the busy share of a profiled 320x200 pass (one tile);
+ 33. ProgressiveRenderController over a second façade renderer of the
+     same scene, two passes in flight, on an empty build directory with
+     K1's library unloaded, so two executor threads make the first K1
+     launch together: exactly 4 passes, one nvcc run of intersect.cu, the
+     accumulated mean equal to iterations 1-4 rendered one after another
+     (rtol 1e-6: float32 summation order);
+ 34. the web editor: serve(port=0, device="cuda") in a thread, driven
+     over HTTP on 127.0.0.1 (every status checked): /api/state,
+     /api/registries, /api/edit edits (a close camera with shutter
+     [0, 1], the default sphere moved, a sphere added) and
+     /api/render?passes=2, then a moving sphere and a mesh on
+     data/bunny.obj added and /api/render again, each with every count at
+     0 just before (K1 the first; K4 and K5, not K1 or K6, the second),
+     each decoded PNG equal to the façade's render of generate(doc,
+     preview=True) at the same two keys tone-mapped as render_png does;
+     K1, K4 (at the rays' shutter times) and K5 against their plain
+     versions on the previews' 96x72 camera rays and timed there; undo
+     and redo followed, two invalid edits answered 500 with a JSON error
+     and the server going on, the project round trip through
+     load_project.
 Every kernel time comes with its bound (bound()): the larger of its
 operations over the float32 peak and its bytes over the memory rate,
 counted from this run's inputs (phase_a_bound: one object ray per ray
@@ -186,12 +223,16 @@ C6's table with the launches of phase 16 and of phase 22, K2 and K6 with
 those of phase 22; K1 with those of the CLI's straight run (phase 24),
 K6 with those of render_to_noise (phase 26), K1 on C3 and K5 on C4 with
 those of their pass in phase 27, K1 and K2 with those of phase 28's
-full-parameter step), the card's name and power limit, and a JSON device
-record.
+full-parameter step, K1 with those of phase 32's three façade passes,
+and K1, K4 and K5 with those of phase 34's /api/render requests), the
+card's name and power limit, and a JSON device record.  Launch counts
+are read only around single-threaded runs (phase 33's two threads
+count approximately and are not recorded).
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import os
 import subprocess
@@ -229,6 +270,20 @@ RECT_FLOPS = 36  # plane t, then both in-plane coordinates
 TF_FLOPS = 45  # an object ray: inv ro + inv_t, inv rd, its norm, the division
 MOTION_FLOPS = 6  # c + t_ray v
 K2_KERNELS = 2  # kernels one K2 call launches (place, sum)
+# the weekend (examples/weekend_scene.py, its own seed 0: 485 spheres, no
+# rect, no light) at its own 1200x800 depth 50
+WEEKEND_SEED, WEEKEND_SIZE = 0, (1200, 800)
+# per-pass image mean at 1200x800; JAX CPU renders of the same document
+# (v4ray_tpu, iterations 1-8) give 0.3787-0.3809 at 120x80 and 0.3674-0.3809
+# at 48x32 (PERF.md); tests/test_torch_editor.py holds JAX's 48x32 renders
+# inside this range
+WEEKEND_MEAN = (0.36, 0.40)
+WEB_PASSES = 2  # passes of each /api/render of phase 34
+# the depth of the CLI's runs (phases 24-25): they check its flags, resume
+# and file formats, and at the main path's depth 20 took 133-204 s of the
+# script's 1,200 s (zy's mean hardly moves with depth: 0.175-0.185 at 4-5,
+# 0.184-0.190 at 20, in CPU renders at 96^2)
+CLI_DEPTH = 5
 COLOR_LINEAR = ("color", "images", "metal_albedo")  # the leaves K2 accumulates
 TRI_FLOPS = 40  # det, 1/det, u, v, t of the triple-product form
 SLAB_FLOPS = 12  # a cluster AABB's six differences and six products
@@ -1099,23 +1154,39 @@ def secondary_rays(tr, ro, rd, t, idx, found, n: int, seed: int):
     triangle's geometric normal turned back toward the incoming ray.  The
     hits go in ray order, repeated with fresh directions to fill ``n``
     rays, or evenly thinned when there are more."""
+    pick = pick_hits(found, n)
+    o = ro[pick] + rd[pick] * t[pick, None]
+    return cosine_rays(o, tr.sw_n[idx[pick].long()].double(), rd[pick], seed)
+
+
+def pick_hits(found, n: int):
+    """The indices of ``n`` hit rays of ``found``, in ray order: repeated
+    to fill ``n`` or evenly thinned when there are more."""
     import numpy as np
     import torch
 
     hits = torch.nonzero(found)[:, 0]
-    pick = hits[torch.from_numpy(np.resize(np.arange(hits.shape[0]), n)).to(hits.device)
+    return hits[torch.from_numpy(np.resize(np.arange(hits.shape[0]), n)).to(hits.device)
                 if hits.shape[0] <= n else
                 torch.linspace(0, hits.shape[0] - 1, n, device=hits.device).long()]
-    o = ro[pick] + rd[pick] * t[pick, None]
-    nrm = tr.sw_n[idx[pick].long()].double()
+
+
+def cosine_rays(o, nrm, rd, seed: int):
+    """Rays from origins ``o`` with directions cosine-distributed (numpy,
+    seeded) about the normals ``nrm`` (float64) turned back toward the
+    incoming directions ``rd``."""
+    import numpy as np
+    import torch
+
+    n = o.shape[0]
     nrm = nrm / nrm.norm(dim=1, keepdim=True)
-    nrm = torch.where(((nrm * rd[pick].double()).sum(dim=1) > 0)[:, None], -nrm, nrm)
+    nrm = torch.where(((nrm * rd.double()).sum(dim=1) > 0)[:, None], -nrm, nrm)
     r = np.random.RandomState(seed)
-    u1, u2 = (torch.from_numpy(r.uniform(0.0, 1.0, n)).to(ro.device) for _ in range(2))
+    u1, u2 = (torch.from_numpy(r.uniform(0.0, 1.0, n)).to(o.device) for _ in range(2))
     # an orthonormal basis (a, b, nrm) per ray
     helper = torch.where((nrm[:, 0].abs() > 0.9)[:, None],
-                         torch.tensor([0.0, 1.0, 0.0], dtype=torch.float64, device=ro.device),
-                         torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64, device=ro.device))
+                         torch.tensor([0.0, 1.0, 0.0], dtype=torch.float64, device=o.device),
+                         torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64, device=o.device))
     a = torch.linalg.cross(helper, nrm)
     a = a / a.norm(dim=1, keepdim=True)
     b = torch.linalg.cross(nrm, a)
@@ -1702,6 +1773,12 @@ def large_table_phase(ci) -> float:
 
 
 def read_png(path: str):
+    """(H, W, 3) uint8 pixels of the PNG file at ``path`` (decode_png)."""
+    with open(path, "rb") as fh:
+        return decode_png(fh.read(), path)
+
+
+def decode_png(data: bytes, what: str):
     """(H, W, 3) uint8 pixels of an 8-bit RGB PNG whose rows all use
     filter 0 (what utils/image.py writes), every chunk's CRC checked:
     the card's machine has no Pillow."""
@@ -1710,30 +1787,28 @@ def read_png(path: str):
 
     import numpy as np
 
-    with open(path, "rb") as fh:
-        data = fh.read()
-    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path} starts with the PNG signature")
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{what} starts with the PNG signature")
     pos, idat, header = 8, b"", None
     while pos < len(data):
         n, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
         (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
-        check(zlib.crc32(kind + body) & 0xFFFFFFFF == crc, f"{path}: {kind} chunk CRC")
+        check(zlib.crc32(kind + body) & 0xFFFFFFFF == crc, f"{what}: {kind} chunk CRC")
         if kind == b"IHDR":
             header = struct.unpack(">IIBB", body[:10])
         elif kind == b"IDAT":
             idat += body
         pos += 12 + n
-    check(header is not None and header[2:] == (8, 2), f"{path} is 8-bit RGB")
+    check(header is not None and header[2:] == (8, 2), f"{what} is 8-bit RGB")
     w, h = header[:2]
     raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    check(bool((raw[:, 0] == 0).all()), f"{path}: every row has filter 0")
+    check(bool((raw[:, 0] == 0).all()), f"{what}: every row has filter 0")
     return raw[:, 1:].reshape(h, w, 3)
 
 
 def cli_phases(smi: str, tile_size: int) -> dict:
     """Phases 24 and 25 on the card: the port's CLI on data/zy_scene.json
-    at 1024^2 depth 20, in-process (a straight run and a resumed one,
+    at 1024^2 depth CLI_DEPTH, in-process (a straight run and a resumed one,
     bit-equal) and as ``python -m`` (PNG with a profiler trace, HDR).
     ``tile_size`` is the renderer's at that size (phase 3).  The files go
     to a directory under build/ that is removed afterwards.  Returns the
@@ -1761,9 +1836,9 @@ def _cli_phases(smi: str, tile_size: int, work: str) -> dict:
 
     zy = os.path.join(ROOT, "data", "zy_scene.json")
     # zy_scene.json's own renderer is 800^2; the CLI's flags set the
-    # main path's 1024^2 depth 20, which phases 3 and 7 render
-    common = ["-i", zy, "--width", str(SIZE), "--height", str(SIZE), "--max-depth", str(DEPTH),
-              "--device", "cuda"]
+    # main path's 1024^2 at CLI_DEPTH
+    common = ["-i", zy, "--width", str(SIZE), "--height", str(SIZE), "--max-depth",
+              str(CLI_DEPTH), "--device", "cuda"]
     path = lambda name: os.path.join(work, name)
 
     def run(*argv) -> str:
@@ -1776,8 +1851,8 @@ def _cli_phases(smi: str, tile_size: int, work: str) -> dict:
     # the CLI's pass without the CLI: Renderer.render + the copy to the
     # host, by the host clock, once before and once after its runs
     bundle = load_scene_json(zy)
-    renderer = Renderer(RendererParam(SIZE, SIZE, max_depth=DEPTH), bundle.camera, bundle.scene,
-                        device="cuda")
+    renderer = Renderer(RendererParam(SIZE, SIZE, max_depth=CLI_DEPTH), bundle.camera,
+                        bundle.scene, device="cuda")
 
     def host_pass(i: int) -> float:
         t0 = time.perf_counter()
@@ -1800,15 +1875,15 @@ def _cli_phases(smi: str, tile_size: int, work: str) -> dict:
     launches_b = ci.LAUNCHES
     bare.append(host_pass(1))
     tiles = -(-SIZE * SIZE // tile_size)
-    print(f"[24] CLI on zy {SIZE}^2 depth {DEPTH}: 4 passes in one run in {run_a_s:.2f} s; K1 "
-          f"launches {launches['k1']} ({launches['k1'] / 4} per pass; {tiles} tiles x {DEPTH} "
-          f"bounces = {tiles * DEPTH}), 2 + resumed 2: {launches_b}; K5 {launches['k5']}, K6 "
-          f"{launches['k6']}")
+    print(f"[24] CLI on zy {SIZE}^2 depth {CLI_DEPTH}: 4 passes in one run in {run_a_s:.2f} s; "
+          f"K1 launches {launches['k1']} ({launches['k1'] / 4} per pass; {tiles} tiles x "
+          f"{CLI_DEPTH} bounces = {tiles * CLI_DEPTH}), 2 + resumed 2: {launches_b}; K5 "
+          f"{launches['k5']}, K6 {launches['k6']}")
     check(all(f"Iter {i} +" in log_a for i in range(1, 5)) and "Iter 4 saved" in log_a,
           "the straight run logs Iter 1-4 and saves")
     check("resumed at iteration 2" in log_b and "Iter 4 +" in log_b, "the second run resumes")
     check(launches["k1"] == launches_b, "the straight and the resumed runs launch K1 alike")
-    check(4 * tiles * STAGE_BOUNCES <= launches["k1"] <= 4 * tiles * DEPTH,
+    check(4 * tiles * STAGE_BOUNCES <= launches["k1"] <= 4 * tiles * CLI_DEPTH,
           "K1 launched once per tile and bounce run, every tile through its first stage")
     check(launches["k5"] == launches["k6"] == 0, "zy launches no triangle sweep")
     (ra, seed_a), (rb, seed_b) = load_render(path("a.ckpt")), load_render(path("b.ckpt"))
@@ -2341,6 +2416,407 @@ def examples_phase(smi: str, dev: str = "cuda") -> None:
             check(len(losses) >= 2 and losses[-1] < losses[0], "fit_materials' loss falls")
 
 
+def weekend_generated():
+    """generate(doc) of the weekend Document
+    (ray_tracing_tpu_torch/examples/weekend_scene.py at WEEKEND_SEED) built
+    with the port's editor, written to its project JSON and opened again:
+    (scene, camera, renderer param)."""
+    from ray_tracing_tpu_torch.editor import document_from_json, document_to_json, generate
+    from ray_tracing_tpu_torch.examples.weekend_scene import build
+
+    doc = document_from_json(json.loads(json.dumps(document_to_json(build(seed=WEEKEND_SEED)))))
+    return generate(doc)
+
+
+def sphere_secondary_rays(spheres, ro, rd, t, idx, found, n: int, seed: int):
+    """``n`` secondary rays from the sphere hits of rays (ro, rd) with
+    winners (t, idx, found): origins ro + rd t, directions
+    cosine-distributed (numpy, seeded) about the hit sphere's normal."""
+    pick = pick_hits(found, n)
+    o = ro[pick] + rd[pick] * t[pick, None]
+    nrm = o.double() - spheres.center[idx[pick].long()].double()
+    return cosine_rays(o, nrm, rd[pick], seed)
+
+
+def facade_pass(renderer):
+    """One ``await renderer.render()`` of a v4ray.Renderer, timed with CUDA
+    events; returns (numpy image, ms)."""
+    import asyncio
+
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    img = asyncio.run(renderer.render())  # the copy to the host waits for the pass
+    end.record()
+    torch.cuda.synchronize()
+    return img, start.elapsed_time(end)
+
+
+def weekend_phases(smi: str) -> dict:
+    """Phases 32 and 33 on the card: the weekend scene through the port's
+    editor and v4ray façade at 1200x800 depth 50, K1 on its 485-sphere,
+    0-rect table against its plain version, then ProgressiveRenderController
+    with two passes in flight on a cold build directory.  Returns the
+    numbers the kernel record needs."""
+    import asyncio
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import ray_tracing_tpu_torch.v4ray as v4ray
+    from ray_tracing_tpu_torch import Renderer, RendererParam
+    from ray_tracing_tpu_torch.editor.render import ProgressiveRenderController
+    from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
+    from ray_tracing_tpu_torch.ops import _build
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import rng
+    from ray_tracing_tpu_torch.render.renderer import _pick_tile_size
+
+    # 32. the document through the port's editor and its project JSON
+    scene, camera, param = weekend_generated()
+    w, h = WEEKEND_SIZE
+    check((param.width, param.height, param.max_depth, param.antialias) == (w, h, 50, True)
+          and camera.aperture == 0.1, "the weekend's final settings: 1200x800 depth 50, "
+          "antialias, aperture 0.1")
+    data = scene.compile()
+    check((data.n_spheres, data.n_rects, data.n_lights) == (485, 0, 0),
+          f"the weekend has 485 spheres, no rect, no light: {data.n_spheres}, "
+          f"{data.n_rects}, {data.n_lights}")
+    tables = data.to("cuda").phase_a
+    check(tables.sph.shape[0] == 485 and tables.rect.shape[0] == 0
+          and not (tables.transformed or tables.sph_motion), "K1's table: 485 spheres, 0 rects")
+
+    # K1 against its plain version on a weekend tile: the camera rays and
+    # secondary rays off their sphere hits
+    cam = Camera.build(camera, w / h).to("cuda")
+    ro, rd, _, _ = camera_rays(cam, rng.key(0), w, h)
+    ro, rd = ro.contiguous(), rd.contiguous()
+    err, kind, idx = compare_phase_a(ci, tables, ro, rd, f"K1 vs plain, {w}x{h} weekend camera "
+                                     "rays (485 spheres, 0 rects)", "32")
+    small = data.spheres.radius.to("cuda")[idx.clamp(min=0).long()] < 100.0
+    on_small = (kind >= 0) & small
+    n_tiles = ro.shape[0] // TILE
+    busiest = int(on_small[:n_tiles * TILE].reshape(n_tiles, TILE).sum(dim=1).argmax())
+    c_ro = ro[busiest * TILE:(busiest + 1) * TILE].contiguous()
+    c_rd = rd[busiest * TILE:(busiest + 1) * TILE].contiguous()
+    n_small = int(on_small[busiest * TILE:(busiest + 1) * TILE].sum())
+    t, _, _ = ci.phase_a_plain(tables, c_ro, c_rd, 1e-3, float("inf"))
+    _, c_kind, c_idx = compare_phase_a(ci, tables, c_ro, c_rd, f"K1 vs plain, weekend camera "
+                                       f"tile {busiest} ({n_small} rays on the small spheres)",
+                                       "32")
+    s_ro, s_rd = sphere_secondary_rays(data.spheres.to("cuda"), c_ro, c_rd, t, c_idx,
+                                       c_kind >= 0, TILE, 0)
+    err = max(err, compare_phase_a(ci, tables, s_ro, s_rd, "K1 vs plain, 65536 secondary rays "
+                                   "off the weekend tile's sphere hits", "32")[0])
+
+    # the main path: generate -> v4ray.Renderer -> await render(), driven
+    # with every count at 0 just before; one warm-up pass and two timed
+    renderer = v4ray.Renderer(param, camera, scene, device="cuda")
+    inner = renderer._inner
+    check(inner.tile_size == TILE, f"the card's renderer tiles by {TILE}: {inner.tile_size}")
+    reset_counts()
+    t0 = time.perf_counter()
+    images, pass_ms = zip(*[facade_pass(renderer) for _ in range(3)])
+    main_s = time.perf_counter() - t0
+    launches = ci.LAUNCHES
+    print(f"[32] rendered 3 passes (iterations 1-3) of the weekend at {w}x{h} depth 50 through "
+          f"v4ray.Renderer (tile {inner.tile_size}) in {main_s:.2f} s; K1 launches {launches} "
+          f"({launches / 3!r} per pass), K3 {ci.TF_LAUNCHES}, K4 {ci.MOTION_LAUNCHES}")
+    check(launches > 0 and ci.TF_LAUNCHES == ci.MOTION_LAUNCHES == 0,
+          "the weekend path launched K1 and no other phase-A kernel")
+    for k, img in enumerate(images):
+        mean = float(img.astype(np.float64).mean())
+        print(f"[32] iteration {k + 1}: mean {mean!r} max {float(img.max())!r}")
+        check(img.shape == (h, w, 3) and img.dtype == np.float32, f"weekend pass {k} shape")
+        check(bool(np.isfinite(img).all()) and bool((img >= 0).all()),
+              f"weekend pass {k} finite, >= 0")
+        check(WEEKEND_MEAN[0] < mean < WEEKEND_MEAN[1], f"weekend pass {k} mean {mean} in "
+              f"{WEEKEND_MEAN}")
+    # the iteration-3 key again, with its segments, at the card's tile and
+    # at the CPU rule's pick for 485 spheres: the same image and segments
+    key3 = rng.fold_in(rng.key(0), 3)
+    cpu_tile = _pick_tile_size(w * h, data.n_spheres + data.n_rects)
+    print(f"[32] card: {smi}")
+    print(f"[32] ms per {w}x{h} depth-50 pass at tile {TILE} (CUDA events; the first is the "
+          f"warm-up): {list(pass_ms)!r}")
+    at_tile = {}
+    for tile, r in ((TILE, inner),
+                    (cpu_tile, Renderer(param, camera, data, device="cuda", tile_size=cpu_tile))):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        again, segments = r.render_with_stats(key3)
+        end.record()
+        torch.cuda.synchronize()
+        at_tile[tile] = (segments, start.elapsed_time(end))
+        print(f"[32] render_with_stats at the iteration-3 key, tile {tile}: {segments} segments "
+              f"in {at_tile[tile][1]!r} ms = {segments / (at_tile[tile][1] / 1e3)!r} segments/s")
+        check(np.array_equal(again.cpu().numpy(), images[2]),
+              f"the iteration-3 key repeats torch.equal at tile {tile}")
+    check(at_tile[cpu_tile][0] == at_tile[TILE][0], "the same segments at both tiles")
+
+    # K1 timed on the busiest camera tile and the secondary tile, against
+    # its plain version and its bound (operations: 65,536 x 485 sphere tests)
+    timed = {}
+    for label, t_ro, t_rd in ((f"camera tile {busiest}", c_ro, c_rd),
+                              ("secondary tile", s_ro, s_rd)):
+        k_ms, p_ms, k_dev, p_dev, bnd = time_k1(ci, tables, t_ro, t_rd)
+        dev = per_launch(k_dev) if k_dev else "not measured"
+        print(f"[32] K1 on the weekend {label}: kernel {k_ms!r} ms, plain {p_ms!r} ms (plain, "
+              f"kernel, kernel, plain); device per call kernel {dev!r} ms, plain "
+              f"{sum(ms for _, ms in p_dev.values()) / 20 if p_dev else 'not measured'!r} ms; "
+              f"bound {bnd[0]!r} ms by {bnd[1]}")
+        timed[label] = (sum(k_ms) / 2, sum(p_ms) / 2, bnd)
+
+    # the device's busy share over a profiled pass of one tile (320x200 =
+    # 64,000 rays) of the same document at depth 50
+    one_tile = Renderer(RendererParam(320, 200, 50, True), camera, data, device="cuda")
+    one_tile.render(0)
+    pass_wall, pass_dev = profile_device(lambda: one_tile.render(1))
+    busy_share(pass_dev, pass_wall, "32", "320x200 depth-50 weekend pass (one tile)")
+
+    # 33. ProgressiveRenderController, two passes in flight on a second
+    # façade renderer of the same scene (iterations 1-4), the kernels'
+    # build directory empty and K1's library unloaded, so that two
+    # executor threads make the first K1 launch together
+    cold = Path(ROOT) / "build" / f"kernels_cold_{os.getpid()}"
+    shutil.rmtree(cold, ignore_errors=True)
+    cold.mkdir(parents=True)
+    saved_dir = _build.BUILD_DIR
+    _build.BUILD_DIR, ci._lib = cold, None
+    compiles = _build.COMPILES
+    passes, in_flight = 4, 2
+    ctl_renderer = v4ray.Renderer(param, camera, scene, device="cuda")
+
+    async def progressive():
+        ctl = ProgressiveRenderController(ctl_renderer, w, h, in_flight=in_flight)
+        # stop once the passes landed and those in flight make `passes`
+        ctl.on_update = lambda img, n: ctl.stop() if n + in_flight - 1 >= passes else None
+        ctl.start()
+        while ctl._tasks:
+            await ctl.drain()
+        return ctl
+
+    try:
+        t0 = time.perf_counter()
+        ctl = asyncio.run(progressive())
+        ctl_s = time.perf_counter() - t0
+        built = sorted(p.name for p in cold.iterdir())
+    finally:
+        _build.BUILD_DIR = saved_dir
+    print(f"[33] ProgressiveRenderController (in_flight {in_flight}) on a cold build directory: "
+          f"{ctl.result.count} passes in {ctl_s:.2f} s (the build included); nvcc runs "
+          f"{_build.COMPILES - compiles}; the directory holds {built}")
+    check(ctl.result.count == passes and ctl_renderer._iteration == passes,
+          f"the controller folded exactly {passes} passes")
+    check(_build.COMPILES == compiles + 1 and len(built) == 2
+          and built[0].startswith("intersect_") and built[0].endswith(".log")
+          and built[1].endswith(".so"), "one build of intersect.cu from two threads")
+    fourth = inner.render(rng.fold_in(rng.key(0), 4)).cpu().numpy()
+    want = np.zeros_like(fourth)
+    for img in (*images, fourth):
+        want += img
+    want /= passes
+    diff = float(np.abs(ctl.result.mean() - want).max())
+    print(f"[33] the accumulated mean against iterations 1-4 rendered one after another: "
+          f"max |d| = {diff!r}")
+    check(bool(np.allclose(ctl.result.mean(), want, rtol=1e-6, atol=1e-7)),
+          "the controller's mean equals the passes in turn (float32 summation order)")
+    shutil.rmtree(cold, ignore_errors=True)
+    cam_ms, cam_plain, cam_bound = timed[f"camera tile {busiest}"]
+    return dict(launches=launches, err=err, ms=cam_ms, plain_ms=cam_plain, bound=cam_bound,
+                pass_ms=list(pass_ms), at_tile=at_tile)
+
+
+def web_phase(smi: str) -> dict:
+    """Phase 34 on the card: serve(port=0, device="cuda") in a thread, the
+    API driven over HTTP on localhost; K1, K4 and K5 launched by
+    /api/render and held against their plain versions on the preview's
+    rays.  Returns the numbers the kernel record needs."""
+    import http.client
+    import threading
+
+    import numpy as np
+    import torch
+
+    import ray_tracing_tpu_torch.v4ray as v4ray
+    from ray_tracing_tpu_torch.editor import document_from_json, generate
+    from ray_tracing_tpu_torch.editor.web import serve
+    from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import cuda_triangles as ct
+    from ray_tracing_tpu_torch.ops import rng
+
+    server = serve(port=0, device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+
+    def call(path, body=None, status=200):
+        """One request; the response's status must be ``status``."""
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            if body is None:
+                conn.request("GET", path)
+            else:
+                conn.request("POST", path, json.dumps(body),
+                             {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            got, out = resp.status, json.loads(resp.read())
+        finally:
+            conn.close()
+        check(got == status, f"{path}: status {got}, expected {status}: "
+              f"{out.get('error') if isinstance(out, dict) else out}")
+        return out
+
+    def key_of(state, table, name):
+        return next(k for k, v in state["document"][table].items() if v["name"] == name)
+
+    def add(state, name, kind, values, mat):
+        call("/api/edit", {"action": "add_object", "name": name})
+        key = key_of(call("/api/state"), "objects", name)
+        call("/api/edit", {"action": "set_shape", "key": key, "kind": kind, "values": values})
+        state = call("/api/edit", {"action": "set_object", "key": key, "material": mat,
+                                   "visible": True})
+        check(key in state["analysis"]["rendered_objects"], f"{name} ({kind}) is rendered")
+        return state, key
+
+    def render(tag):
+        """/api/render?passes=2 with every count at 0 just before: the
+        decoded PNG equals the façade's render of generate(doc,
+        preview=True) at the same two keys, tone-mapped as render_png does;
+        returns (launches, the preview's scene, camera and param)."""
+        reset_counts()
+        t0 = time.perf_counter()
+        out = call(f"/api/render?passes={WEB_PASSES}")
+        wall = time.perf_counter() - t0
+        launches = {"k1": ci.LAUNCHES, "k3": ci.TF_LAUNCHES, "k4": ci.MOTION_LAUNCHES,
+                    "k5": ct.LAUNCHES, "k6": ct.CL_LAUNCHES}
+        check(out["iterations"] == WEB_PASSES, f"{tag}: {WEB_PASSES} passes rendered")
+        png = decode_png(base64.b64decode(out["png"]), f"/api/render ({tag})")
+        doc = document_from_json(call("/api/project"))
+        scene, camera, param = generate(doc, preview=True)
+        facade = v4ray.Renderer(param, camera, scene, device="cuda")
+        acc = np.zeros((param.height, param.width, 3), np.float32)
+        for k in range(WEB_PASSES):
+            acc += facade._inner.render(k).cpu().numpy()
+        want = (np.sqrt(np.clip(acc / WEB_PASSES, 0.0, 1.0)) * 255).astype(np.uint8)
+        print(f"[34] /api/render?passes={WEB_PASSES} ({tag}, {param.width}x{param.height} "
+              f"preview) in {wall:.2f} s: launches {launches}; PNG equal to the façade's "
+              f"render {np.array_equal(png, want)}, max |d| "
+              f"{int(np.abs(png.astype(int) - want).max())}")
+        check(np.array_equal(png, want), f"{tag}: the PNG equals the façade's render")
+        return launches, (scene, camera, param)
+
+    def preview_rays(camera, param):
+        cam = Camera.build(camera, param.width / param.height).to("cuda")
+        ro, rd, _, k_trace = camera_rays(cam, rng.key(0), param.width, param.height,
+                                         antialias=False)
+        n = param.width * param.height
+        t_ray = rng.ray_time(k_trace, torch.arange(n, device="cuda"),
+                             torch.stack([cam.time0, cam.time1]))
+        return ro.contiguous(), rd.contiguous(), t_ray
+
+    try:
+        state = call("/api/state")
+        regs = call("/api/registries")
+        check(state["analysis"]["camera_valid"] and {"sphere", "moving-sphere", "mesh"}
+              <= regs["shapes"].keys(), "the editor serves its state and registries")
+        mat = key_of(state, "materials", "gray mat")
+        # a close camera on the origin, shutter [0, 1]; the default sphere,
+        # which would hold the bunny, moves back; then a sphere is added
+        call("/api/edit", {"action": "set_camera", "kind": "perspective", "values": [
+            0.0, 0.14, 0.55, 0.0, 0.09, 0.0, 35.0, 0.0, 1.0, 0.0, 0.0, 0.5, 0.0, 1.0]})
+        call("/api/edit", {"action": "set_shape", "key": key_of(state, "objects", "sphere"),
+                           "kind": "sphere", "values": [-0.6, 0.5, -1.5, 0.5]})
+        state, _ = add(state, "ball", "sphere", [0.16, 0.05, 0.02, 0.05], mat)
+        k1_launches, (scene1, camera1, param1) = render("three spheres")
+        check(k1_launches["k1"] > 0 and k1_launches["k4"] == k1_launches["k5"] == 0,
+              "the spheres' preview launched K1")
+        state, _ = add(state, "mover", "moving-sphere",
+                       [-0.17, 0.05, 0.03, -0.11, 0.05, 0.03, 0.04, 0.0, 1.0], mat)
+        state, bunny = add(state, "bunny", "mesh", [os.path.join(ROOT, "data", "bunny.obj"), ""],
+                           mat)
+        launches, (scene2, camera2, param2) = render("spheres, a moving sphere and the bunny")
+        check(launches["k4"] > 0 and launches["k5"] > 0 and launches["k1"] == 0
+              and launches["k6"] == 0, "the preview launched K4 (the moving sphere's table) and "
+              "K5 (the bunny), not K1 or K6")
+
+        # the kernels against their plain versions on the preview's rays
+        tables1 = scene1.compile().to("cuda").phase_a
+        ro1, rd1, _ = preview_rays(camera1, param1)
+        k1_err = compare_k1(ci, tables1, ro1, rd1, f"{param1.width}x{param1.height} preview "
+                            "rays, three spheres", "34")
+        data2 = scene2.compile().to("cuda")
+        tables2 = data2.phase_a
+        check(tables2.sph_motion and data2.n_triangles == 4968, "a moving table and the bunny")
+        ro2, rd2, t_ray2 = preview_rays(camera2, param2)
+        before = ci.MOTION_LAUNCHES
+        k4_err, kind, idx = compare_phase_a(ci, tables2, ro2, rd2, f"K4 vs plain, "
+                                            f"{param2.width}x{param2.height} preview rays at "
+                                            "their shutter times", "34", t_ray2)
+        check(ci.MOTION_LAUNCHES == before + 1, "the moving table launched K4")
+        moving = torch.nonzero(data2.spheres.vel.abs().sum(dim=1) > 0)[:, 0].to(idx.dtype)
+        on_mover = int(((kind == 0) & torch.isin(idx, moving)).sum())
+        print(f"[34]   {on_mover} winners on the moving sphere")
+        check(on_mover > 0, "K4 winners include the moving sphere")
+        tr = data2.triangles
+        k5_err, _ = compare_k5(ct, tr, ro2, rd2, f"{param2.width}x{param2.height} preview rays",
+                               "34")
+
+        # timings at these shapes, after their launches above
+        saved = (ci.LAUNCHES, ci.TF_LAUNCHES, ci.MOTION_LAUNCHES, ct.LAUNCHES, ct.CL_LAUNCHES)
+        k1_ms, k1_plain, _, _, k1_bound = time_k1(ci, tables1, ro1, rd1)
+        k4_args = (tables2, ro2, rd2, 1e-3, float("inf"), t_ray2)
+        k4_plain = [cuda_ms(lambda: ci.phase_a_plain(*k4_args), 20)]
+        k4_ms = [cuda_ms(lambda: ci.phase_a_cuda(*k4_args), 100) for _ in range(2)]
+        k4_plain.append(cuda_ms(lambda: ci.phase_a_plain(*k4_args), 20))
+        k4_bound = phase_a_bound(ci, tables2, ro2.shape[0])
+        k5_plain = lambda: ct.triangle_sweep_plain(tr.sw_table, tr.sw_origin, ro2, rd2, 1e-3,
+                                                   float("inf"))
+        k5_p = [cuda_ms(k5_plain, 3)]
+        k5 = time_sweep_tiles(ct, tr, ct.triangle_sweep_cuda, "triangle_sweep_kernel",
+                              ((f"{param2.width}x{param2.height} preview rays", ro2, rd2),), "34")
+        k5_p.append(cuda_ms(k5_plain, 3))
+        k5_ms, _, k5_bound = next(iter(k5.values()))
+        (ci.LAUNCHES, ci.TF_LAUNCHES, ci.MOTION_LAUNCHES, ct.LAUNCHES, ct.CL_LAUNCHES) = saved
+        print(f"[34] card: {smi}")
+        print(f"[34] K1 on the preview rays: kernel {k1_ms!r} ms, plain {k1_plain!r} ms; bound "
+              f"{k1_bound[0]!r} ms by {k1_bound[1]}")
+        print(f"[34] K4 on the preview rays: kernel {k4_ms!r} ms, plain {k4_plain!r} ms; bound "
+              f"{k4_bound[0]!r} ms by {k4_bound[1]}")
+        print(f"[34] K5's plain version on the preview rays: {k5_p!r} ms (before and after)")
+
+        # undo follows; errors come back as JSON bodies and the server goes on
+        state = call("/api/undo", {})
+        check(bunny not in state["analysis"]["rendered_objects"] and state["can_redo"],
+              "undo took the bunny's material and visibility back")
+        state = call("/api/redo", {})
+        check(bunny in state["analysis"]["rendered_objects"], "redo restored it")
+        bad = call("/api/edit", {"action": "explode"}, status=500)
+        check("unknown action" in bad["error"], "an unknown action is a JSON error")
+        bad = call("/api/edit", {"action": "set_shape", "key": "nope", "kind": "sphere",
+                                 "values": [0, 0, 0, 1]}, status=500)
+        check("error" in bad, "a malformed key is a JSON error")
+        project = call("/api/project")
+        state = call("/api/edit", {"action": "load_project", "project": project})
+        check(state["document"]["objects"].keys() == project["objects"].keys()
+              and state["can_undo"], "the project round trip through load_project")
+        print("[34] undo and redo followed; two invalid edits came back as JSON errors (500) and "
+              "the server went on; the project round trip loaded")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    return dict(k1=k1_launches["k1"], k4=launches["k4"], k5=launches["k5"],
+                k1_err=k1_err, k4_err=k4_err, k5_err=k5_err,
+                k1_ms=sum(k1_ms) / 2, k1_plain_ms=sum(k1_plain) / 2, k1_bound=k1_bound,
+                k4_ms=sum(k4_ms) / 2, k4_plain_ms=sum(k4_plain) / 2, k4_bound=k4_bound,
+                k5_ms=k5_ms, k5_plain_ms=sum(k5_p) / 2, k5_bound=k5_bound)
+
+
 def main() -> int:
     import torch
 
@@ -2487,6 +2963,8 @@ def main() -> int:
     gallery = timed("phase 27 (gallery C3, C4)", gallery_phase, smi)
     train = timed("phases 28-30 (train steps, autograd surface)", train_phases, smi)
     timed("phase 31 (fit examples)", examples_phase, smi)
+    wk = timed("phases 32-33 (weekend through the editor and v4ray facade)", weekend_phases, smi)
+    web = timed("phase 34 (web editor)", web_phase, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"ray_tracing_tpu_torch/csrc/{source}",
@@ -2557,6 +3035,18 @@ def main() -> int:
         entry("scatter_add (K2), zy train steps", "scatter.cu",
               "ray_tracing_tpu/ops/pallas_scatter.py:82", train["launches"]["k2"], grad["k2_err"],
               grad["k2_ms"], grad["k2_plain_ms"], grad["k2_bound"], grad["k2_library_ms"]),
+        # this slice's paths: the weekend through the editor and the v4ray
+        # façade (phase 32), the web editor's previews (phase 34)
+        entry("phase_a (K1), weekend forward render (editor, v4ray facade)", *k1,
+              wk["launches"], wk["err"], wk["ms"], wk["plain_ms"], wk["bound"]),
+        entry("phase_a (K1), web editor preview", *k1, web["k1"], web["k1_err"], web["k1_ms"],
+              web["k1_plain_ms"], web["k1_bound"]),
+        entry("phase_a motion (K4), web editor preview", "intersect.cu",
+              "ray_tracing_tpu/ops/pallas_intersect.py:127", web["k4"], web["k4_err"],
+              web["k4_ms"], web["k4_plain_ms"], web["k4_bound"]),
+        entry("triangle_sweep (K5), web editor preview", "triangles.cu",
+              "ray_tracing_tpu/ops/pallas_triangles.py:147", web["k5"], web["k5_err"],
+              web["k5_ms"], web["k5_plain_ms"], web["k5_bound"]),
     ]}
     print(json.dumps(record))
     print(smi)

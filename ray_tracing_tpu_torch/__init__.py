@@ -16,8 +16,12 @@ rays of a render pass or a train step over a ``torch.distributed``
 process group; ``examples`` holds the three fit scripts.  ``python -m
 ray_tracing_tpu_torch.cli`` renders a JSON scene progressively to an
 image file (utils/: image, checkpoint and stats); ``scenes`` builds the
-gallery's C3, C4 and C6 and the motion-blur example.  See ROADMAP.md
-for what is still to come.
+gallery's C3, C4 and C6 and the motion-blur example.  ``v4ray`` is the
+reference's Python API over the port (``Scene``, an awaitable
+``Renderer.render()``), ``v4ray_frontend`` the editor's plugins and
+``editor`` the scene editor's core and its web server (``python -m
+ray_tracing_tpu_torch.editor.web``).  See ROADMAP.md for what is still
+to come.
 """
 
 from ray_tracing_tpu_torch.models.camera import Camera, CameraParam

@@ -2,7 +2,9 @@
 package's ``examples/fit_albedo.py``, ``fit_materials.py`` and
 ``fit_geometry.py``, with the same flags and defaults plus ``--device``
 (default ``cuda``).  Run as ``python -m
-ray_tracing_tpu_torch.examples.fit_materials --device cpu``."""
+ray_tracing_tpu_torch.examples.fit_materials --device cpu``.
+``weekend_scene`` writes the editor's "One Weekend" project file, the
+counterpart of ``examples/weekend_scene.py``."""
 
 import torch
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -46,11 +47,14 @@ from ray_tracing_tpu_torch.ops.intersect import INF, KIND_NONE, KIND_RECT, KIND_
 
 SOURCE = _build.CSRC / "intersect.cu"
 
+# The launch counts are not locked: counts taken while several threads launch
+# are approximate.
 LAUNCHES = 0  # K1 launches (no table transformed) since the last reset
 TF_LAUNCHES = 0  # K3 launches (a table transformed) since the last reset
 MOTION_LAUNCHES = 0  # K4 launches (moving spheres) since the last reset
 
 _lib = None
+_lib_lock = threading.Lock()  # one load and binding per process
 
 
 def _sphere_grid(rows, ro, rd, lo, hi, t_ray=None):
@@ -124,12 +128,15 @@ def phase_a_plain(tables: PhaseATables, ro, rd, t_min: float, t_max: float, t_ra
 
 def _library():
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(_build.build(SOURCE)))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.phase_a_launch.argtypes = [p, i, p, i, p, i, i, i, p, p, p, i, f, f, p, p, p, p]
-        lib.phase_a_launch.restype = ctypes.c_int
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build.build(SOURCE)))
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.phase_a_launch.argtypes = [p, i, p, i, p, i, i, i, p, p, p, i, f, f, p, p, p, p]
+            lib.phase_a_launch.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 

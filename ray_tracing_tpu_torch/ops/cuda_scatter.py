@@ -27,6 +27,7 @@ ops/_build.py and loaded with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -34,9 +35,12 @@ from ray_tracing_tpu_torch.ops import _build
 
 SOURCE = _build.CSRC / "scatter.cu"
 
+# The launch counts are not locked: counts taken while several threads launch
+# are approximate.
 LAUNCHES = 0  # calls of the kernel (two launches each) since the last reset
 
 _lib = None
+_lib_lock = threading.Lock()  # one load and binding per process
 _max_segments = None
 _max_blocks = None
 _block_rows = None
@@ -74,12 +78,15 @@ def bind(lib):
 
 def _library():
     global _lib, _max_segments, _max_blocks, _block_rows
-    if _lib is None:
-        lib = bind(ctypes.CDLL(str(_build.build(SOURCE))))
-        _max_segments = lib.scatter_add_max_segments()
-        _max_blocks = lib.scatter_add_max_blocks()
-        _block_rows = lib.scatter_add_block_rows()
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = bind(ctypes.CDLL(str(_build.build(SOURCE))))
+            _max_segments = lib.scatter_add_max_segments()
+            _max_blocks = lib.scatter_add_max_blocks()
+            _block_rows = lib.scatter_add_block_rows()
+            _lib = lib
     return _lib
 
 

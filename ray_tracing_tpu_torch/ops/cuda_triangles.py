@@ -27,6 +27,7 @@ selection only, on detached inputs; gradients flow through phase B
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -46,10 +47,13 @@ CL_CHUNK = KERNEL_CLUSTER  # triangles per cluster of K5 and K6 (csrc/triangles.
 WARP_RAYS = 32  # rays per warp, the unit of the kernels' decisions
 NEEDED_CHUNK = 8192  # rays per (rays x clusters) grid of needed_cluster_pairs
 
+# The launch counts are not locked: counts taken while several threads launch
+# are approximate.
 LAUNCHES = 0  # K5 launches since the last reset
 CL_LAUNCHES = 0  # K6 launches since the last reset
 
 _lib = None
+_lib_lock = threading.Lock()  # one load and binding per process
 
 
 def cluster_sweep_plain(tris: TriangleTable, ro, rd, t_min: float, t_max: float):
@@ -113,13 +117,16 @@ def needed_cluster_pairs(aabb, origin, ro, rd, t_min: float, t_hit):
 
 def _library():
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(_build.build(SOURCE)))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for fn in (lib.triangle_sweep_launch, lib.cluster_sweep_launch):
-            fn.argtypes = [p, i, p, i, p, p, p, i, f, f, p, p, p, p, p]
-            fn.restype = ctypes.c_int
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build.build(SOURCE)))
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            for fn in (lib.triangle_sweep_launch, lib.cluster_sweep_launch):
+                fn.argtypes = [p, i, p, i, p, p, p, i, f, f, p, p, p, p, p]
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 

@@ -46,7 +46,10 @@ class RendererParam:
 
 def _pick_tile_size(n_rays: int, n_prims: int, grid_budget: int = 4_194_304) -> int:
     """Bound the (tile x primitives) candidate grid to ``grid_budget``
-    entries, with tiles of 512 to 65536 rays."""
+    entries, with tiles of 512 to 65536 rays.  The grid is the plain
+    phase A's; on the card K1 loops over the table inside the kernel, so
+    a CUDA renderer passes ``n_prims=0`` and its tile is bounded by the
+    ray count and 65536 alone."""
     budget = grid_budget // max(n_prims, 1)
     tile = 512
     while tile * 2 <= min(budget, n_rays, 65536):
@@ -93,7 +96,8 @@ class Renderer:
         self.scene = scene.to(self.device)
         self.camera = Camera.build(camera, param.width / param.height).to(self.device)
         self.tile_size = tile_size or _pick_tile_size(
-            param.width * param.height, scene.n_spheres + scene.n_rects
+            param.width * param.height,
+            scene.n_spheres + scene.n_rects if self.device.type == "cpu" else 0,
         )
         self.max_depth = param.max_depth if param.max_depth is not None else 20
         self.antialias = param.antialias if param.antialias is not None else True

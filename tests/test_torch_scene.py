@@ -164,7 +164,8 @@ def test_image_without_npy_or_pillow_names_pillow(tmp_path, monkeypatch):
 
 
 def test_port_never_imports_jax_or_the_jax_package():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|ray_tracing_tpu)\b", re.M)
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|ray_tracing_tpu|v4ray_tpu|v4ray_frontend_tpu)\b", re.M)
     sources = []
     for root, _, files in os.walk(PKG):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
