@@ -25,8 +25,8 @@ Phases (any failure raises and exits non-zero):
      the same rows without duplicates, the real rows of one zy tile's
      tape sweep into the table [gimg | gcol | gmet] (each stage, and the
      three stages in one call) and 288,164 rows all live;
-  7. the gradient path: zy at 1024x1024 depth 20, params_of -> 16 tiles
-     of 65,536 rays under one trace key with ids_base,
+  7. the gradient path: zy at 1024x1024 depth GRAD_DEPTH, params_of ->
+     16 tiles of 65,536 rays under one trace key with ids_base,
      prb_loss_and_grad_all(torch.sum, defer_scalars=True) per tile, one
      global scalar_tangent_pass; loss = image mean.  All five gradient
      leaves finite and nonzero, K1 and K2 launched, the loss equal to the
@@ -36,8 +36,8 @@ Phases (any failure raises and exits non-zero):
      the color, images and metal-albedo gradients (K2's leaves) bit for
      bit, fuzz and IR to rtol 1e-4, and three SGD steps of an L2 fit to a
      target rendered under another key;
-  8. timings with CUDA events: ms per 1024x1024 depth-20 fwd+bwd pass
-     and traced segments per second (counted untimed on the same keys, as
+  8. timings with CUDA events: ms per 1024x1024 depth-GRAD_DEPTH fwd+bwd
+     pass and traced segments per second (counted untimed on the same keys, as
      bench.py counts them; 1024^2 rays per second beside it), split into
      taped forward, sweep and tangent pass; the device's busy share over
      one tile's fwd+bwd; K2 on one zy tile's sweep rows (one call, two
@@ -97,8 +97,8 @@ Phases (any failure raises and exits non-zero):
      a block gets without opting in and past the 227 KB it may opt in to
      (streamed in chunks): found, kind and index equal, t bit-equal;
  21. the third main path: the full-parameter fwd+bwd of data/scene.json
-     at 800x800 depth 50 (10 tiles of 65,536 rays, one tangent pass;
-     loss = image mean), driven with every count at 0 just before: all
+     at 800x800 depth SJ_GRAD_DEPTH (10 tiles of 65,536 rays, one tangent
+     pass; loss = image mean), driven with every count at 0 just before: all
      five leaves finite and nonzero, the fog's isotropic albedo row
      nonzero, K2 once per tile, K3 and K5 launched, the loss equal to the
      mean of the image render_pass draws (rtol 1e-5), the color gradient
@@ -142,8 +142,8 @@ Phases (any failure raises and exits non-zero):
      kernel timed on the busiest camera tile against its plain version
      and bound;
  28. the train step of parallel/mesh.py: make_prb_train_step_all_direct
-     on zy at 1024x1024 depth 20, one process, from wall colors at 0.5
-     toward a target rendered at the true parameters under the step's
+     on zy at 1024x1024 depth GRAD_DEPTH, one process, from wall colors at
+     0.5 toward a target rendered at the true parameters under the step's
      own key (lr TRAIN_LR): one step on every leaf, finite, K1 launched
      and K2 once per tile, equal to params - lr g with g from
      prb_loss_and_grad_all called tile by tile by hand (the color-linear
@@ -179,10 +179,10 @@ Phases (any failure raises and exits non-zero):
      equal, t bit-equal); three façade passes (a warm-up and two timed
      with CUDA events) driven with every count at 0 just before: finite,
      non-negative, mean in WEEKEND_MEAN, K1 launched and no other phase-A
-     kernel; render_with_stats at the third pass's key, at the card's
-     tile (65,536) and at the CPU rule's (8,192), each torch.equal to it,
-     timed, with the same segments (segments/s); K1 timed on the camera
-     and secondary tiles against its plain version and its operations
+     kernel; render_with_stats at the third pass's key and depth
+     WEEKEND_TILE_DEPTH at the card's tile (65,536) and at the CPU rule's
+     (8,192), torch.equal, timed, with the same segments (segments/s);
+     K1 timed on the camera and secondary tiles against its plain version and its operations
      bound; the busy share of a profiled 320x200 pass (one tile);
  33. ProgressiveRenderController over a second façade renderer of the
      same scene, two passes in flight, on an empty build directory with
@@ -204,6 +204,39 @@ Phases (any failure raises and exits non-zero):
      and redo followed, two invalid edits answered 500 with a JSON error
      and the server going on, the project round trip through
      load_project.
+ 35. the gallery runner (ray_tracing_tpu_torch/examples/render_baselines.py)
+     in-process at GALLERY_ARGS (C1 64^2 1 spp ... C5 256^2 16 spp, the
+     default depth), one configuration a call into one directory, every
+     count at 0 just before each: stats.json holds all six with the JAX
+     script's keys, each PNG decodes to its size (no Pillow), each mean
+     in GALLERY_MEAN, each configuration launched its kernels and no
+     other (C1 K3 and K5, C2/C3/C5 K1, C4 K1 and K5, C6 K1 and K6), and
+     each of those kernels against its plain version on the
+     configuration's own first-pass camera rays, timed there; then C6's
+     host compile (79,488 triangles) and its parts, apart from its
+     passes;
+ 36. the motion-blur demo (examples/motion_blur.py) at 96^2, 4 spp: the
+     PNG decodes, the mean in MB_MEAN, K4 launched and K1 not; K4
+     against its plain version on the demo's first-pass camera rays;
+ 37. the BVH walk (ops/bvh.py, plain PyTorch) on C4's bunny built with
+     its BVH (scenes.bunny(bvh=True): no sweep or cluster tables):
+     against K5 on the busiest 65,536-ray camera tile and 65,536
+     secondary rays off its hits (found equal, idx equal but at t ties,
+     which are counted, t to rtol 1e-5), ms per walk and its steps
+     (each one host read); a 128^2 depth-1 pass through the walk
+     torch.equal to the sweep's; 128^2 depth-20 passes at tiles 4,096
+     and 65,536, torch.equal, finite, with a mean in C4_MEAN, K1
+     launched and no sweep, timed beside the sweep's pass (K5
+     launched); K1 and K5 against their plain versions on those passes'
+     camera rays;
+ 38. ``python bench_scaling_torch.py --devices 1`` (one NCCL rank,
+     16,384 zy rays, depth 10, 3 passes) as a subprocess: its line
+     carries every key of bench_scaling.py's line, sharding_overhead
+     finite, the rank's color gradient and segments equal to the
+     unsharded run's, K1 and K2 launched in the timed passes; then, in
+     this process, K1 against its plain version on the harness's rank-0
+     rays and K2 against scatter_add_plain on the rows of one fwd+bwd of
+     them, each timed there (K2 beside index_add_).
 Every kernel time comes with its bound (bound()): the larger of its
 operations over the float32 peak and its bytes over the memory rate,
 counted from this run's inputs (phase_a_bound: one object ray per ray
@@ -224,8 +257,14 @@ those of phase 22; K1 with those of the CLI's straight run (phase 24),
 K6 with those of render_to_noise (phase 26), K1 on C3 and K5 on C4 with
 those of their pass in phase 27, K1 and K2 with those of phase 28's
 full-parameter step, K1 with those of phase 32's three façade passes,
-and K1, K4 and K5 with those of phase 34's /api/render requests), the
-card's name and power limit, and a JSON device record.  Launch counts
+K1, K4 and K5 with those of phase 34's /api/render requests, each
+kernel of each gallery configuration with the launches of its run in
+phase 35, K4 with those of phase 36's demo, K1 with those of each of
+phase 37's passes through the BVH walk and K5 with those of its sweep
+pass, K1 and K2 with rank 0's launches in the harness's timed passes
+(phase 38); each of phases 35-38's entries with the kernel held against
+its plain version and timed on that path's own rays), the card's name
+and power limit, and a JSON device record.  Launch counts
 are read only around single-threaded runs (phase 33's two threads
 count approximately and are not recorded).
 """
@@ -278,12 +317,34 @@ WEEKEND_SEED, WEEKEND_SIZE = 0, (1200, 800)
 # at 48x32 (PERF.md); tests/test_torch_editor.py holds JAX's 48x32 renders
 # inside this range
 WEEKEND_MEAN = (0.36, 0.40)
+# the depth of phase 32's renders at two tiles: at the weekend's own 50 the
+# one at 8,192 took 30.7 s (PERF.md)
+WEEKEND_TILE_DEPTH = 10
 WEB_PASSES = 2  # passes of each /api/render of phase 34
 # the depth of the CLI's runs (phases 24-25): they check its flags, resume
 # and file formats, and at the main path's depth 20 took 133-204 s of the
 # script's 1,200 s (zy's mean hardly moves with depth: 0.175-0.185 at 4-5,
 # 0.184-0.190 at 20, in CPU renders at 96^2)
 CLI_DEPTH = 5
+# the depth of the fwd+bwd and train paths (phases 6-8, 21 and 28-30): at
+# the main paths' depths (zy 20, scene.json 50) they took 500 s of the
+# script's 912 s on an H100 (PERF.md); a zy pass takes about 3x its
+# depth-5 time (forward: 4.7 s against 1.5 s), though its rays trace 3.8
+# segments on average to depth 20.  Their checks compare one path with
+# another at one depth and hold no range set at the main paths' depths
+GRAD_DEPTH, SJ_GRAD_DEPTH = 5, 10
+GALLERY_ARGS = ("--res-scale", "0.25", "--spp-scale", "0.0625")  # sizes 64-256, spp 1-16
+# the size and spp of each configuration at GALLERY_ARGS, and its image
+# mean: the JAX script's CPU run at the same flags and keys gives C1
+# 0.5952, C2 0.1879, C3 0.4530, C4 0.3724, C5 0.1885, C6 0.3653 (PERF.md);
+# tests/test_torch_baselines.py holds the port against JAX at 16^2
+GALLERY_RUNS = {"C1": (64, 1), "C2": (128, 4), "C3": (128, 4), "C4": (128, 8),
+                "C5": (256, 16), "C6": (128, 2)}
+GALLERY_MEAN = {"C1": (0.50, 0.70), "C2": (0.16, 0.22), "C3": (0.41, 0.50),
+                "C4": (0.34, 0.41), "C5": (0.16, 0.22), "C6": (0.33, 0.40)}
+MB_DEMO = ("--size", "96", "--spp", "4")  # the motion demo at 96^2, 4 spp, depth 8
+WALK_SIZE = 128  # the BVH walk's passes on C4 (phase 37)
+WALK_TILES = (4096, 65536)  # the JAX package's BVH tile cap (a TPU measurement) and the card's
 COLOR_LINEAR = ("color", "images", "metal_albedo")  # the leaves K2 accumulates
 TRI_FLOPS = 40  # det, 1/det, u, v, t of the triple-product form
 SLAB_FLOPS = 12  # a cluster AABB's six differences and six products
@@ -583,7 +644,8 @@ def repeat_report(tag: str, loss, grads, loss2, grads2) -> dict:
 
 def gradient_phases(scene, bundle, smi: str) -> dict:
     """Phases 6-8 on the card: K2 against its plain version, the
-    full-parameter fwd+bwd of zy at 1024^2 depth 20, and its timings.
+    full-parameter fwd+bwd of zy at 1024^2 depth GRAD_DEPTH, and its
+    timings.
     Returns the numbers the kernel record needs."""
     import numpy as np
     import torch
@@ -616,7 +678,7 @@ def gradient_phases(scene, bundle, smi: str) -> dict:
     unique[live] = r.permutation(p_texels)[: int(live.sum())]
     k2_err = max(k2_err, compare_k2(cs, p_texels, [(torch.from_numpy(unique.astype(np.int32)).to(dev),
                                                     contrib, mask)], "the same rows, no duplicates"))
-    tile_rows, p_table = tile_segments(scene, ro, rd, k_trace, DEPTH)
+    tile_rows, p_table = tile_segments(scene, ro, rd, k_trace, GRAD_DEPTH)
     for stage, rows_s in enumerate(tile_rows):
         k2_err = max(k2_err, compare_k2(cs, p_table, [rows_s], f"zy tile 0 sweep stage {stage}"))
     k2_err = max(k2_err, compare_k2(cs, p_table, tile_rows,
@@ -633,14 +695,15 @@ def gradient_phases(scene, bundle, smi: str) -> dict:
     params = params_of(scene)
     reset_counts()
     t0 = time.perf_counter()
-    loss, grads = grad_pass(params, scene, ro, rd, k_trace, lambda rad, rows: torch.sum(rad))
+    loss, grads = grad_pass(params, scene, ro, rd, k_trace, lambda rad, rows: torch.sum(rad),
+                            GRAD_DEPTH)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"k1_launches": ci.LAUNCHES, "k2_launches": cs.LAUNCHES}
     check(cs.LAUNCHES == n // TILE, "K2 is called once per tile")
     norms = {f: float(torch.linalg.vector_norm(getattr(grads, f))) for f in AllParams._fields}
-    print(f"[7] zy {SIZE}^2 depth {DEPTH} fwd+bwd ({n // TILE} tiles of {TILE}, one tangent pass): "
-          f"loss {float(loss)!r} in {wall:.2f} s; K1 launches {ci.LAUNCHES}, "
+    print(f"[7] zy {SIZE}^2 depth {GRAD_DEPTH} fwd+bwd ({n // TILE} tiles of {TILE}, one tangent "
+          f"pass): loss {float(loss)!r} in {wall:.2f} s; K1 launches {ci.LAUNCHES}, "
           f"K2 launches {cs.LAUNCHES}; gradient norms {norms}")
     for f in AllParams._fields:
         g = getattr(grads, f)
@@ -648,15 +711,16 @@ def gradient_phases(scene, bundle, smi: str) -> dict:
         check(bool(torch.isfinite(g).all()), f"{f} gradient finite")
         check(norms[f] > 0.0, f"{f} gradient nonzero")
     check(ci.LAUNCHES > 0 and cs.LAUNCHES > 0, "the gradient path launched K1 and K2")
-    mean0 = image_mean(scene, cam, key)
+    mean0 = image_mean(scene, cam, key, depth=GRAD_DEPTH)
     check(abs(mean0 - float(loss)) <= 1e-5 * mean0, "the gradient pass's loss is the image mean")
-    segments = traced_segments(scene, ro, rd, k_trace)
+    segments = traced_segments(scene, ro, rd, k_trace, GRAD_DEPTH)
 
     # colors against a central difference: at a fixed key the paths do not
     # depend on colors, so the image mean is a polynomial in them
     d = grads.color / torch.linalg.vector_norm(grads.color)
     eps = 1e-2
-    at = lambda c: image_mean(_with_all(scene, params._replace(color=c)), cam, key)
+    at = lambda c: image_mean(_with_all(scene, params._replace(color=c)), cam, key,
+                              depth=GRAD_DEPTH)
     fd = (at(params.color + eps * d) - at(params.color - eps * d)) / (2 * eps)
     gd = float((grads.color * d).sum())
     print(f"[7] color gradient along g/|g|: g.d {gd!r}, central difference (eps {eps}) {fd!r}, "
@@ -665,7 +729,8 @@ def gradient_phases(scene, bundle, smi: str) -> dict:
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    loss2, grads2 = grad_pass(params, scene, ro, rd, k_trace, lambda rad, rows: torch.sum(rad))
+    loss2, grads2 = grad_pass(params, scene, ro, rd, k_trace, lambda rad, rows: torch.sum(rad),
+                              GRAD_DEPTH)
     end.record()
     torch.cuda.synchronize()
     pass_ms = [start.elapsed_time(end)]  # phase 8's first timing
@@ -689,12 +754,12 @@ def gradient_phases(scene, bundle, smi: str) -> dict:
         fuzz=torch.where(is_metal, 0.05, params.fuzz),
         ir=torch.where(params.ir > 1.0, 1.2, params.ir),
     )
-    target = render_pass(scene, cam, rng.key(1), width=SIZE, height=SIZE, max_depth=DEPTH,
+    target = render_pass(scene, cam, rng.key(1), width=SIZE, height=SIZE, max_depth=GRAD_DEPTH,
                          antialias=True, tile_size=TILE).reshape(n, 3)
     lr = 1.0
     for step in range(3):
         loss_s, g = grad_pass(fit, scene, ro, rd, k_trace,
-                              lambda rad, rows: torch.sum((rad - target[rows]) ** 2))
+                              lambda rad, rows: torch.sum((rad - target[rows]) ** 2), GRAD_DEPTH)
         g = g._replace(color=torch.where(pinned, 0.0, g.color))
         step_norms = {f: float(torch.linalg.vector_norm(getattr(g, f))) for f in AllParams._fields}
         print(f"[7] SGD step {step}: L2 loss {float(loss_s)!r}, gradient norms {step_norms}")
@@ -716,18 +781,18 @@ def gradient_phases(scene, bundle, smi: str) -> dict:
     # phase 7 and one more); the segments of the pass were counted untimed
     # on the same keys in phase 7 (bench.py:253-273)
     start.record()
-    grad_pass(params, scene, ro, rd, k_trace, lambda rad, rows: torch.sum(rad))
+    grad_pass(params, scene, ro, rd, k_trace, lambda rad, rows: torch.sum(rad), GRAD_DEPTH)
     end.record()
     torch.cuda.synchronize()
     pass_ms.append(start.elapsed_time(end))
-    fwd_ms, sweep_ms, tangent_ms = split_pass(params, scene, ro, rd, k_trace)
+    fwd_ms, sweep_ms, tangent_ms = split_pass(params, scene, ro, rd, k_trace, GRAD_DEPTH)
     k2 = time_k2(cs, p_table, tile_rows, dev, "8", "zy")
     tile_wall, tile_dev = profile_device(
         lambda: grad_pass(params, scene, ro[:TILE], rd[:TILE], k_trace,
-                          lambda rad, rows: torch.sum(rad)))
+                          lambda rad, rows: torch.sum(rad), GRAD_DEPTH))
     mean_ms = sum(pass_ms) / len(pass_ms)
     print(f"[8] card: {smi}")
-    print(f"[8] ms per {SIZE}^2 depth-{DEPTH} fwd+bwd pass: {pass_ms!r} (mean {mean_ms!r}); "
+    print(f"[8] ms per {SIZE}^2 depth-{GRAD_DEPTH} fwd+bwd pass: {pass_ms!r} (mean {mean_ms!r}); "
           f"{segments} traced segments (counted untimed, bench.py's unit): "
           f"{segments / (mean_ms / 1e3)!r} segments/s; 1024^2 rays/s "
           f"{n / (mean_ms / 1e3)!r}")
@@ -1246,7 +1311,7 @@ def copies_rays(n: int, seed: int):
             torch.from_numpy(rd.astype(np.float32)).cuda())
 
 
-def compare_k6(ct, tr, ro, rd, what: str, dense: bool = False):
+def compare_k6(ct, tr, ro, rd, what: str, dense: bool = False, tag: str = "15"):
     """K6 against cluster_sweep_plain (in 65,536-ray slices) on the same
     card tensors, and with ``dense`` against triangle_sweep_plain too;
     returns (largest |dt| over hits, (t, idx, found))."""
@@ -1261,16 +1326,16 @@ def compare_k6(ct, tr, ro, rd, what: str, dense: bool = False):
     n, kc = ro.shape[0], tr.sw_aabb.shape[0]
     plain = [ct.cluster_sweep_plain(tr, ro[s:s + TILE], rd[s:s + TILE], 1e-3, float("inf"))
              for s in range(0, n, TILE)]
-    err = agree("15", f"K6 vs plain, {what} ({tr.v0.shape[0]} triangles, {kc} clusters of "
+    err = agree(tag, f"K6 vs plain, {what} ({tr.v0.shape[0]} triangles, {kc} clusters of "
                 f"{ct.CL_CHUNK})", n, got, [torch.cat(x) for x in zip(*plain)])
     if dense:
         plain = [ct.triangle_sweep_plain(tr.sw_table, tr.sw_origin, ro[s:s + TILE],
                                          rd[s:s + TILE], 1e-3, float("inf"))
                  for s in range(0, n, TILE)]
-        err = max(err, agree("15", f"K6 vs the dense plain version, {what}", n, got,
+        err = max(err, agree(tag, f"K6 vs the dense plain version, {what}", n, got,
                              [torch.cat(x) for x in zip(*plain)]))
     pairs, _ = needed_work(ct, tr, ro, rd, got[0], got[2])
-    print(f"[15]   {pairs} of {n * kc} (ray, cluster) pairs needed ({pairs / (n * kc):.4f}); "
+    print(f"[{tag}]   {pairs} of {n * kc} (ray, cluster) pairs needed ({pairs / (n * kc):.4f}); "
           f"{sweep_stats(ct, stats, n, kc)}")
     check(float(got[2].float().mean()) > 0.01, f"more than 1 % of the rays hit the mesh on {what}")
     return err, got
@@ -1548,7 +1613,7 @@ def fwd_bwd_path(label: str, tag: str, scene, cam, size: int, depth: int, smi: s
 
 def grad_path_phases(smi: str) -> dict:
     """Phases 21 and 22: the full-parameter fwd+bwd of data/scene.json at
-    800^2 depth 50 (K2, K3, K5) and of C6 at 512^2 depth 20 (K2, K6), with
+    800^2 depth SJ_GRAD_DEPTH (K2, K3, K5) and of C6 at 512^2 depth 20 (K2, K6), with
     their checks and timings."""
     import torch
     from ray_tracing_tpu_torch import load_scene_json, scenes
@@ -1557,7 +1622,8 @@ def grad_path_phases(smi: str) -> dict:
     dev = torch.device("cuda")
     bundle = load_scene_json(os.path.join(ROOT, "data", "scene.json"))
     sj = fwd_bwd_path("scene.json", "21", bundle.scene.to(dev),
-                      Camera.build(bundle.camera, 1.0).to(dev), SJ_SIZE, SJ_DEPTH, smi, sj=True)
+                      Camera.build(bundle.camera, 1.0).to(dev), SJ_SIZE, SJ_GRAD_DEPTH, smi,
+                      sj=True)
     host_scene, cam_param, _ = scenes.bunny_grid()
     c6 = fwd_bwd_path("C6", "22", host_scene.to(dev), Camera.build(cam_param, 1.0).to(dev),
                       C6_SIZE, DEPTH, smi, sj=False)
@@ -2059,8 +2125,9 @@ def gallery_phase(smi: str) -> dict:
 
 # the learning rate of phase 28's SGD steps, from CPU runs of the same
 # fit at 64^2 depth 20 (PERF.md): the loss fell over four steps at 0.05
-# and 0.1 and rose at 0.2 and 0.5.  At 1024^2 the fuzz and IR updates
-# raise the loss; phase 28's witness shows why
+# and 0.1 and rose at 0.2 and 0.5.  At 1024^2 depth 20 the fuzz and IR
+# updates raised the loss (not at GRAD_DEPTH, PERF.md); phase 28's witness
+# shows why
 TRAIN_LR = 0.05
 
 
@@ -2460,6 +2527,7 @@ def weekend_phases(smi: str) -> dict:
     with two passes in flight on a cold build directory.  Returns the
     numbers the kernel record needs."""
     import asyncio
+    import dataclasses
     import shutil
     from pathlib import Path
 
@@ -2535,26 +2603,31 @@ def weekend_phases(smi: str) -> dict:
               f"weekend pass {k} finite, >= 0")
         check(WEEKEND_MEAN[0] < mean < WEEKEND_MEAN[1], f"weekend pass {k} mean {mean} in "
               f"{WEEKEND_MEAN}")
-    # the iteration-3 key again, with its segments, at the card's tile and
-    # at the CPU rule's pick for 485 spheres: the same image and segments
+    # the iteration-3 key again at depth WEEKEND_TILE_DEPTH, with its
+    # segments, at the card's tile and at the CPU rule's pick for 485
+    # spheres: the same image and segments
     key3 = rng.fold_in(rng.key(0), 3)
     cpu_tile = _pick_tile_size(w * h, data.n_spheres + data.n_rects)
     print(f"[32] card: {smi}")
     print(f"[32] ms per {w}x{h} depth-50 pass at tile {TILE} (CUDA events; the first is the "
           f"warm-up): {list(pass_ms)!r}")
-    at_tile = {}
-    for tile, r in ((TILE, inner),
-                    (cpu_tile, Renderer(param, camera, data, device="cuda", tile_size=cpu_tile))):
+    tile_param = dataclasses.replace(param, max_depth=WEEKEND_TILE_DEPTH)
+    at_tile, first = {}, None
+    for tile in (TILE, cpu_tile):
+        r = Renderer(tile_param, camera, data, device="cuda", tile_size=tile)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         again, segments = r.render_with_stats(key3)
         end.record()
         torch.cuda.synchronize()
         at_tile[tile] = (segments, start.elapsed_time(end))
-        print(f"[32] render_with_stats at the iteration-3 key, tile {tile}: {segments} segments "
-              f"in {at_tile[tile][1]!r} ms = {segments / (at_tile[tile][1] / 1e3)!r} segments/s")
-        check(np.array_equal(again.cpu().numpy(), images[2]),
-              f"the iteration-3 key repeats torch.equal at tile {tile}")
+        print(f"[32] render_with_stats at the iteration-3 key, depth {WEEKEND_TILE_DEPTH}, tile "
+              f"{tile}: {segments} segments in {at_tile[tile][1]!r} ms = "
+              f"{segments / (at_tile[tile][1] / 1e3)!r} segments/s")
+        again = again.cpu().numpy()
+        first = again if first is None else first
+        check(np.array_equal(again, first), f"the iteration-3 key at depth {WEEKEND_TILE_DEPTH} "
+              f"renders torch.equal at tiles {TILE} and {tile}")
     check(at_tile[cpu_tile][0] == at_tile[TILE][0], "the same segments at both tiles")
 
     # K1 timed on the busiest camera tile and the secondary tile, against
@@ -2817,6 +2890,454 @@ def web_phase(smi: str) -> dict:
                 k5_ms=k5_ms, k5_plain_ms=sum(k5_p) / 2, k5_bound=k5_bound)
 
 
+def path_kernels(kernels, scene, ro, rd, what: str, tag: str, t_ray=None) -> dict:
+    """Each kernel of ``kernels`` (of "k1", "k3", "k4", "k5", "k6") held
+    against its plain version on a path's own card rays (compare_phase_a,
+    compare_k5, compare_k6: winners equal, t bit-equal) and timed there by
+    CUDA events in turns (plain, kernel, kernel, plain), beside its bound
+    from these rays (phase_a_bound, sweep_bound).  The launches made here
+    do not count: every count is put back.  Returns {kernel: dict(err,
+    ms, plain_ms, bound)}."""
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import cuda_triangles as ct
+
+    saved = (ci.LAUNCHES, ci.TF_LAUNCHES, ci.MOTION_LAUNCHES, ct.LAUNCHES, ct.CL_LAUNCHES)
+    ro, rd, inf = ro.contiguous(), rd.contiguous(), float("inf")
+    tr, out = scene.triangles, {}
+    for k in kernels:
+        if k in ("k1", "k3", "k4"):
+            args = (scene.phase_a, ro, rd, 1e-3, inf, t_ray)
+            err = compare_phase_a(ci, scene.phase_a, ro, rd, f"{k.upper()} vs plain, {what}", tag,
+                                  t_ray)[0]
+            kernel = lambda: ci.phase_a_cuda(*args)
+            plain = lambda: ci.phase_a_plain(*args)
+            bnd, reps = phase_a_bound(ci, scene.phase_a, ro.shape[0]), (100, 20)
+        else:
+            args = (tr.sw_table, tr.sw_aabb, tr.sw_origin, ro, rd, 1e-3, inf)
+            if k == "k5":
+                err, (t, _, found) = compare_k5(ct, tr, ro, rd, what, tag)
+                kernel = lambda: ct.triangle_sweep_cuda(*args)
+                plain = lambda: ct.triangle_sweep_plain(tr.sw_table, tr.sw_origin, ro, rd, 1e-3,
+                                                        inf)
+            else:
+                err, (t, _, found) = compare_k6(ct, tr, ro, rd, what, tag=tag)
+                kernel = lambda: ct.cluster_sweep_cuda(*args)
+                plain = lambda: ct.cluster_sweep_plain(tr, ro, rd, 1e-3, inf)
+            pairs, tri_pairs = needed_work(ct, tr, ro, rd, t, found)
+            bnd = sweep_bound(ro.shape[0], tr.v0.shape[0], tr.sw_aabb.shape[0], pairs, tri_pairs)
+            reps = (20, 3)
+        p_ms = [cuda_ms(plain, reps[1])]
+        k_ms = [cuda_ms(kernel, reps[0]) for _ in range(2)]
+        p_ms.append(cuda_ms(plain, reps[1]))
+        print(f"[{tag}] {k.upper()} on {what} ({ro.shape[0]} rays): kernel {k_ms!r} ms, plain "
+              f"{p_ms!r} ms (plain, kernel, kernel, plain); bound {bnd[0]!r} ms by {bnd[1]}")
+        out[k] = dict(err=err, ms=sum(k_ms) / 2, plain_ms=sum(p_ms) / 2, bound=bnd)
+    ci.LAUNCHES, ci.TF_LAUNCHES, ci.MOTION_LAUNCHES, ct.LAUNCHES, ct.CL_LAUNCHES = saved
+    return out
+
+
+def host_compile_split() -> dict:
+    """Seconds of C6's host compile (scenes.bunny_grid: 79,488
+    triangles) and of its parts on the same arrays: the OBJ load, the
+    Morton order, the sweep constants, the CUDA sweeps' tables, the
+    cluster tables and phase A's tables.  The first build is the one
+    render_baselines makes; this is a second, in the same process.  The
+    Morton order is timed over the table's own boxes (the authored
+    vertices' are not kept, and differ by an ulp at most)."""
+    import numpy as np
+    import torch
+
+    from ray_tracing_tpu_torch import scenes
+    from ray_tracing_tpu_torch.models import compiler, scene as sc
+    from ray_tracing_tpu_torch.models.mesh import load_triangles
+
+    out = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        out[name] = time.perf_counter() - t0
+        return res
+
+    built = timed("bunny_grid()", scenes.bunny_grid)[0]
+    timed("load_triangles(bunny.obj)", load_triangles, os.path.join(scenes.DATA, "bunny.obj"))
+    tr = built.triangles
+    verts = torch.stack([tr.v0, tr.v0 + tr.e12, tr.v0 + tr.e13], dim=1).numpy()
+    timed("morton_order", compiler.morton_order, verts.min(axis=1), verts.max(axis=1))
+    bare = sc.TriangleTable(**{f: getattr(tr, f) for f in (
+        "v0", "e12", "e13", "n0", "n1", "n2", "uv0", "uv1", "uv2", "material")})
+    swept = timed("pack_triangle_sweep", sc.pack_triangle_sweep, bare)
+    swept = timed("pack_sweep_kernel_tables", sc.pack_sweep_kernel_tables, swept)
+    timed("pack_triangle_clusters", sc.pack_triangle_clusters, swept)
+    timed("with_phase_a_tables", sc.with_phase_a_tables, built)
+    check(np.array_equal(swept.sw_table.numpy(), tr.sw_table.numpy()),
+          "C6's sweep tables packed again equal the compiler's")
+    return out
+
+
+def baselines_phase(smi: str) -> dict:
+    """Phase 35 on the card: render_baselines.main in-process at
+    GALLERY_ARGS, one configuration a call into one directory (stats.json
+    merges them), with every count at 0 just before each: six configs in
+    stats.json with the JAX script's keys, each PNG decoding to its size,
+    each mean in GALLERY_MEAN, the launches of K1, K3, K4, K5 and K6 per
+    config; each configuration's kernels held against their plain
+    versions on its first pass's camera rays and timed there
+    (path_kernels); then C6's host compile apart from its passes.
+    Returns the launches, stats, those kernels' numbers and the compile
+    seconds."""
+    import tempfile
+
+    import torch
+    from ray_tracing_tpu_torch.examples import render_baselines
+    from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import cuda_triangles as ct
+    from ray_tracing_tpu_torch.ops import rng
+
+    launches, wall = {}, {}
+    with tempfile.TemporaryDirectory() as work:
+        for name in render_baselines.CONFIGS:
+            reset_counts()
+            t0 = time.perf_counter()
+            render_baselines.main(["--out", work, "--configs", name, *GALLERY_ARGS,
+                                   "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall[name] = time.perf_counter() - t0
+            launches[name] = {"k1": ci.LAUNCHES, "k3": ci.TF_LAUNCHES, "k4": ci.MOTION_LAUNCHES,
+                              "k5": ct.LAUNCHES, "k6": ct.CL_LAUNCHES}
+        with open(os.path.join(work, "stats.json")) as fh:
+            stats = json.load(fh)
+        check(sorted(stats) == sorted(GALLERY_RUNS), "stats.json holds the six configurations")
+        for name, (size, spp) in GALLERY_RUNS.items():
+            rec = stats[name]
+            check(tuple(rec) == ("size", "spp", "seconds_per_pass", "total_seconds",
+                                 "mean_radiance", "image"), f"{name}: the JAX script's keys")
+            check((rec["size"], rec["spp"]) == (size, spp), f"{name} at {size}^2, {spp} spp")
+            png = read_png(rec["image"])
+            check(png.shape == (size, size, 3), f"{name}'s PNG decodes to {size}x{size}")
+            lo, hi = GALLERY_MEAN[name]
+            check(lo < rec["mean_radiance"] < hi,
+                  f"{name} mean {rec['mean_radiance']} in {GALLERY_MEAN[name]}")
+            print(f"[35] {name} {size}^2 x {spp} spp: {rec['seconds_per_pass']!r} s/pass (after "
+                  f"the first), {rec['total_seconds']!r} s, mean {rec['mean_radiance']!r}, "
+                  f"main() wall {wall[name]!r} s with the build; launches {launches[name]}; "
+                  f"card: {smi}")
+    want = {"C1": ("k3", "k5"), "C2": ("k1",), "C3": ("k1",), "C4": ("k1", "k5"),
+            "C5": ("k1",), "C6": ("k1", "k6")}
+    for name, kernels in want.items():
+        got = {k for k, v in launches[name].items() if v}
+        check(got == set(kernels), f"{name} launched {sorted(kernels)} and no other ({got})")
+    rows = {}
+    for name, kernels in want.items():
+        scene, cam_param, _, _ = render_baselines.build(name)
+        size = GALLERY_RUNS[name][0]
+        cam = Camera.build(cam_param, 1.0).to("cuda")
+        ro, rd, _, _ = camera_rays(cam, rng.fold_in(rng.key(0), 0), size, size)
+        rows[name] = path_kernels(kernels, scene.to("cuda"), ro, rd,
+                                  f"{name}'s {size}^2 first-pass camera rays", "35")
+    split = host_compile_split()
+    c6_pass = stats["C6"]["seconds_per_pass"]
+    print(f"[35] C6 host compile (79,488 triangles), s: {split}; against {c6_pass!r} s per "
+          f"{GALLERY_RUNS['C6'][0]}^2 pass")
+    return {"launches": launches, "stats": stats, "rows": rows, "compile": split}
+
+
+def motion_demo_phase(smi: str) -> dict:
+    """Phase 36 on the card: motion_blur.main at MB_DEMO (depth 8), every
+    count at 0 just before: the PNG decodes to its size, the mean is in
+    MB_MEAN, K4 launched and K1 not; K4 held against its plain version on
+    the first pass's camera rays at their shutter times and timed there."""
+    import tempfile
+
+    from ray_tracing_tpu_torch import scenes
+    from ray_tracing_tpu_torch.examples import motion_blur
+    from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import rng
+
+    with tempfile.TemporaryDirectory() as work:
+        out = os.path.join(work, "motion_blur.png")
+        reset_counts()
+        t0 = time.perf_counter()
+        mean = motion_blur.main(["--out", out, *MB_DEMO, "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        launches = {"k1": ci.LAUNCHES, "k4": ci.MOTION_LAUNCHES}
+        size = int(MB_DEMO[1])
+        check(read_png(out).shape == (size, size, 3), f"the demo's PNG decodes to {size}^2")
+    print(f"[36] motion demo {size}^2 x {MB_DEMO[3]} spp depth 8: mean {mean!r}, {wall!r} s with "
+          f"the build; launches {launches}; card: {smi}")
+    check(MB_MEAN[0] < mean < MB_MEAN[1], f"the demo's mean {mean} in {MB_MEAN}")
+    check(launches["k4"] > 0 and launches["k1"] == 0, "the demo launched K4 and not K1")
+    scene, cam_param, _ = scenes.motion_blur()
+    cam = Camera.build(cam_param, 1.0).to("cuda")
+    ro, rd, t_ray, _ = camera_rays(cam, rng.fold_in(rng.key(0), 0), size, size)
+    rows = path_kernels(("k4",), scene.to("cuda"), ro, rd,
+                        f"the demo's {size}^2 first-pass camera rays", "36", t_ray.contiguous())
+    return {"launches": launches, "mean": mean, "rows": rows}
+
+
+def walk_t_slack(tr, ro, rd, idx):
+    """How far the walk's t (Moeller-Trumbore: (e13 . ((ro - v0) x e12))
+    / det) and K5's (the triple products: (o . n - d0) / -(rd . n)) may
+    part beyond rtol: a few float32 ulps of each numerator's terms, which
+    cancel, over |det| = |rd . n| (large on a grazing hit or near the
+    ray's origin, where t is small), in float64."""
+    import numpy as np
+
+    i = idx.long()
+    n = tr.sw_n[i].double()
+    det = (rd.double() * n).sum(dim=1).abs()
+    sweep = ((ro.double() - tr.sw_origin.double()).norm(dim=1) * n.norm(dim=1)
+             + tr.sw_d0[i].double().abs())
+    walk = ((ro.double() - tr.v0[i].double()).norm(dim=1) * tr.e12[i].double().norm(dim=1)
+            * tr.e13[i].double().norm(dim=1))
+    return 4 * float(np.finfo(np.float32).eps) * (sweep + walk) / det
+
+
+def walk_against_k5(bvh, ct, tr, tree, ro, rd, what: str) -> dict:
+    """The BVH walk against K5 on the same rays: found equal; t within
+    rtol 1e-5 widened per ray by walk_t_slack (the walk uses
+    Moeller-Trumbore, K5 the triple products); idx equal but at t ties,
+    where the walk's winner's t is within that bound of K5's (a shared
+    edge, which the two arithmetics break apart), counted.  Returns K5's
+    result, the ties, the walk's steps and its ms by events."""
+    import torch
+
+    inf = float("inf")
+    kt, kidx, kfound = ct.triangle_sweep_cuda(tr.sw_table, tr.sw_aabb, tr.sw_origin, ro, rd,
+                                              1e-3, inf)
+    steps = bvh.STEPS
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    hit = bvh.bvh_traverse_triangles(tree, ro, rd, 1e-3, inf)
+    end.record()
+    torch.cuda.synchronize()
+    steps = bvh.STEPS - steps
+    ms = start.elapsed_time(end)
+    both = hit.mask & kfound
+    dt = (hit.t[both].double() - kt[both].double()).abs()
+    allowed = 1e-5 * kt[both].double() + walk_t_slack(tr, ro[both], rd[both], kidx[both])
+    widened = int((dt > 1e-5 * kt[both].double()).sum())
+    ties = int((hit.index[both] != kidx[both]).sum())
+    print(f"[37] walk vs K5, {what}: {ro.shape[0]} rays, {int(kfound.sum())} on the mesh; found "
+          f"mismatches {int((hit.mask != kfound).sum())}, idx apart at {ties} t ties, t past "
+          f"rtol 1e-5 on {widened} rays (inside their slack), max |dt| / allowed "
+          f"{float((dt / allowed).max()) if dt.numel() else 0.0!r}; walk {ms!r} ms in {steps} "
+          f"steps ({steps + 1} host reads)")
+    check(torch.equal(hit.mask, kfound), f"{what}: the walk finds what K5 finds")
+    check(bool((dt <= allowed).all()), f"{what}: t within rtol 1e-5 and its slack, so idx "
+          "equal but at t ties")
+    return {"k5": (kt, kidx, kfound), "ties": ties, "steps": steps, "ms": ms}
+
+
+def bvh_phase(smi: str) -> dict:
+    """Phase 37 on the card: the BVH walk (ops/bvh.py, plain PyTorch) on
+    C4's bunny (scenes.bunny(bvh=True)): against K5 on the busiest
+    65,536-ray camera tile and 65,536 secondary rays off its hits; a
+    WALK_SIZE^2 depth-1 pass through the walk torch.equal to the sweep's;
+    depth-20 passes at tiles WALK_TILES torch.equal to each other, finite,
+    with a mean in C4_MEAN, timed, with the walk's calls and steps and
+    the launches of each pass (K1 and no sweep through the walk, K5 in
+    the sweep's pass); K1 and K5 held against their plain versions on
+    those passes' camera rays (path_kernels)."""
+    import torch
+    from ray_tracing_tpu_torch import Renderer, RendererParam, scenes
+    from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
+    from ray_tracing_tpu_torch.ops import bvh, rng
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import cuda_triangles as ct
+    from ray_tracing_tpu_torch.ops.intersect import mesh_strategy
+
+    t0 = time.perf_counter()
+    host, cam_param, _ = scenes.bunny()
+    t1 = time.perf_counter()
+    walked_host = scenes.bunny(bvh=True)[0]
+    t2 = time.perf_counter()
+    check(mesh_strategy(walked_host) == "bvh", "C4 built with its BVH takes the walk")
+    scene, walked = host.to("cuda"), walked_host.to("cuda")
+    tr, tree = scene.triangles, walked.bvh
+    print(f"[37] C4's BVH: {tree.n_nodes} nodes over {host.n_triangles} triangles; C4 compiled "
+          f"in {t1 - t0!r} s, with its BVH (bvh=True) in {t2 - t1!r} s")
+    cam = Camera.build(cam_param, 1.0).to("cuda")
+    ro, rd, _, _ = camera_rays(cam, rng.key(0), GALLERY_SIZE, GALLERY_SIZE)
+    _, _, found = ct.triangle_sweep_cuda(tr.sw_table, tr.sw_aabb, tr.sw_origin, ro.contiguous(),
+                                         rd.contiguous(), 1e-3, float("inf"))
+    busiest = int(found.reshape(-1, TILE).sum(dim=1).argmax())
+    t_ro = ro[busiest * TILE:(busiest + 1) * TILE].contiguous()
+    t_rd = rd[busiest * TILE:(busiest + 1) * TILE].contiguous()
+    cam_run = walk_against_k5(bvh, ct, tr, tree, t_ro, t_rd, f"C4 camera tile {busiest}")
+    s_ro, s_rd = secondary_rays(tr, t_ro, t_rd, *cam_run["k5"], TILE, 37)
+    sec_run = walk_against_k5(bvh, ct, tr, tree, s_ro, s_rd, "secondary tile")
+    walk_ms = [walk_against_k5(bvh, ct, tr, tree, t_ro, t_rd, "camera tile, again")["ms"]]
+
+    one = RendererParam(WALK_SIZE, WALK_SIZE, max_depth=1)
+    got = Renderer(one, cam_param, walked_host, device="cuda").render(0)
+    want = Renderer(one, cam_param, host, device="cuda").render(0)
+    check(torch.equal(got, want), f"{WALK_SIZE}^2 depth 1: the walk's pass equals the sweep's")
+    deep = RendererParam(WALK_SIZE, WALK_SIZE)
+    passes, launches = {}, {}
+    for tile in WALK_TILES:
+        r = Renderer(deep, cam_param, walked_host, device="cuda", tile_size=tile)
+        walks, steps = bvh.WALKS, bvh.STEPS
+        reset_counts()
+        img, pass_ms = elapsed_ms(lambda: r.render(0))
+        launches[tile] = {"k1": ci.LAUNCHES, "k5": ct.LAUNCHES, "k6": ct.CL_LAUNCHES}
+        passes[tile] = (img, pass_ms, bvh.WALKS - walks, bvh.STEPS - steps)
+        check(launches[tile]["k1"] > 0 and launches[tile]["k5"] == launches[tile]["k6"] == 0,
+              f"the walk's pass at tile {tile} launched K1 and no sweep")
+    check_images([passes[t][0] for t in WALK_TILES], WALK_SIZE, C4_MEAN, "37", "C4 via the walk")
+    check(torch.equal(passes[WALK_TILES[0]][0], passes[WALK_TILES[1]][0]),
+          "the walk's depth-20 pass does not depend on the tile")
+    sweeper = Renderer(deep, cam_param, host, device="cuda")
+    walks = bvh.WALKS
+    reset_counts()
+    sweep_img, sweep_ms = elapsed_ms(lambda: sweeper.render(0))
+    launches["sweep"] = {"k1": ci.LAUNCHES, "k5": ct.LAUNCHES, "k6": ct.CL_LAUNCHES}
+    check(launches["sweep"]["k5"] > 0 and bvh.WALKS == walks, "the sweep's pass launched K5 "
+          "and walked no BVH")
+    for tile, (_, ms, walks, steps) in passes.items():
+        print(f"[37] {WALK_SIZE}^2 depth 20 through the walk at tile {tile}: {ms!r} ms, {walks} "
+              f"walks, {steps} steps ({steps + walks} host reads); launches {launches[tile]}; "
+              f"card: {smi}")
+    print(f"[37] the same pass through K5: {sweep_ms!r} ms, mean {float(sweep_img.mean())!r}; "
+          f"launches {launches['sweep']}; images torch.equal at depth 1")
+    cam128 = Camera.build(cam_param, 1.0).to("cuda")
+    ro, rd, _, _ = camera_rays(cam128, rng.key(0), WALK_SIZE, WALK_SIZE)
+    rows = path_kernels(("k1", "k5"), scene, ro, rd,
+                        f"C4's {WALK_SIZE}^2 camera rays of render(0)", "37")
+    return {"camera": cam_run, "secondary": sec_run, "walk_ms": walk_ms,
+            "passes": {t: v[1:] for t, v in passes.items()}, "launches": launches,
+            "rows": rows}
+
+
+SCALING_KEYS = ("metric", "value", "unit", "per_device", "devices", "segments_per_pass",
+                "primary_rays_per_pass", "unsharded_same_work_s", "sharded_s",
+                "sharding_overhead")
+
+
+def scaling_phase(smi: str) -> dict:
+    """Phase 38 on the card: ``python bench_scaling_torch.py --devices 1``
+    (one NCCL rank, 16,384 zy rays, depth 10, 3 passes) as a subprocess:
+    its line carries every key of bench_scaling.py's, sharding_overhead
+    finite, the one rank's loss and color gradient equal to the unsharded
+    run's (the same computation), the segments equal."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "bench_scaling_torch.py"),
+                          "--devices", "1"], cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    check(run.returncode == 0, f"bench_scaling_torch.py exited {run.returncode}: "
+          f"{run.stderr[-2000:]}")
+    lines = [json.loads(x) for x in run.stdout.splitlines() if x.startswith("{")]
+    check(len(lines) == 1, "one JSON line for one rank")
+    rec = lines[0]
+    missing = [k for k in SCALING_KEYS if k not in rec]
+    check(not missing, f"the line carries bench_scaling.py's keys (missing {missing})")
+    check(bool(np.isfinite(rec["sharding_overhead"])), "sharding_overhead is finite")
+    check(rec["segments_per_pass"] == rec["unsharded_segments_per_pass"],
+          "one rank counts the unsharded segments")
+    np.testing.assert_allclose(rec["color_grad"], rec["unsharded_color_grad"], rtol=1e-6)
+    print(f"[38] bench_scaling_torch.py --devices 1 ({wall!r} s with the start): "
+          f"{json.dumps({k: rec[k] for k in SCALING_KEYS})}; backend {rec['backend']}; rank 0's "
+          f"launches in the timed passes {rec['launches']}; card: {smi}")
+    check(rec["launches"]["k1"] > 0 and rec["launches"]["k2"] > 0,
+          "the harness's timed passes launched K1 and K2")
+    return dict(rec, **harness_kernels())
+
+
+def harness_kernels() -> dict:
+    """K1 and K2 of bench_scaling_torch.py on its rank-0 rays (16,384 zy
+    camera rays, depth 10) in this process: K1 held against its plain
+    version and timed (path_kernels); K2 on the rows of one fwd+bwd of
+    those rays under the first timed pass's key, caught at the sweep's
+    scatter (render/prb_tape.py), against scatter_add_plain on the CPU
+    (compare_k2) and timed beside its plain version and index_add_
+    (time_k2).  Returns {"k1": ..., "k2_err": ..., "k2": ...}."""
+    import torch
+
+    import bench_scaling_torch as harness
+    from ray_tracing_tpu_torch import load_scene_json
+    from ray_tracing_tpu_torch.models.camera import Camera
+    from ray_tracing_tpu_torch.ops import cuda_scatter as cs
+    from ray_tracing_tpu_torch.ops import rng
+    from ray_tracing_tpu_torch.render import prb_tape
+
+    bundle = load_scene_json(os.path.join(ROOT, "data", "zy_scene.json"))
+    scene = bundle.scene.to("cuda")
+    per = 16384
+    ro, rd = harness._rays(Camera.build(bundle.camera, 1.0).to("cuda"), per, 0)
+    rows = path_kernels(("k1",), scene, ro, rd, f"the harness's rank-0 rays ({per} zy)", "38")
+    calls, real = [], prb_tape.scatter_add
+
+    def catch(table, segments):
+        calls.append((table.shape[0], [tuple(x.clone() for x in seg) for seg in segments]))
+        return real(table, segments)
+
+    prb_tape.scatter_add = catch
+    try:
+        harness._fwd_bwd(scene, ro, rd, rng.key(1), 10, 0, per)
+    finally:
+        prb_tape.scatter_add = real
+    check(len(calls) == 1, f"one K2 call for the harness's {per}-ray tile ({len(calls)})")
+    p, segments = calls[0]
+    before = cs.LAUNCHES
+    err = compare_k2(cs, p, segments, f"the harness's rank-0 tile ({per} zy rays, depth 10)",
+                     "38")
+    k2 = time_k2(cs, p, segments, torch.device("cuda"), "38", "harness")
+    cs.LAUNCHES = before
+    return {"k1": rows["k1"], "k2_err": err, "k2": k2}
+
+
+def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
+    """One kernel of the JSON kernel record."""
+    return {"name": name, "route": "cuda", "source": f"ray_tracing_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": library_ms}
+
+
+def path_entries(gallery_run, demo, walk, scale) -> list:
+    """The kernel record's entries of phases 35-38: each kernel with the
+    launches of its own path's run and the numbers path_kernels (and
+    harness_kernels, for K2) measured on that path's rays."""
+    k1 = ("intersect.cu", "ray_tracing_tpu/ops/pallas_intersect.py:116")
+    gl, gk = gallery_run["launches"], gallery_run["rows"]
+    out = []
+    names = {"k1": ("phase_a (K1)", *k1), "k3": ("phase_a transformed (K3)", *k1),
+             "k4": ("phase_a motion (K4)", "intersect.cu",
+                    "ray_tracing_tpu/ops/pallas_intersect.py:127"),
+             "k5": ("triangle_sweep (K5)", "triangles.cu",
+                    "ray_tracing_tpu/ops/pallas_triangles.py:147"),
+             "k6": ("cluster_sweep (K6, serving K7's case)", "triangles.cu",
+                    "ray_tracing_tpu/ops/pallas_triangles.py:364 and :287")}
+
+    def path_entry(k, path, launches, row):
+        name, source, replaces = names[k]
+        return entry(f"{name}, {path}", source, replaces, launches, row["err"], row["ms"],
+                     row["plain_ms"], row["bound"])
+
+    for name, rows in gk.items():
+        for k, row in rows.items():
+            out.append(path_entry(k, f"gallery runner {name}", gl[name][k], row))
+    out.append(path_entry("k4", "motion-blur demo", demo["launches"]["k4"], demo["rows"]["k4"]))
+    for tile in WALK_TILES:
+        out.append(path_entry("k1", f"C4 depth-20 pass through the BVH walk, tile {tile}",
+                              walk["launches"][tile]["k1"], walk["rows"]["k1"]))
+    out.append(path_entry("k5", "C4 depth-20 pass through the sweep (the walk's reference)",
+                          walk["launches"]["sweep"]["k5"], walk["rows"]["k5"]))
+    out.append(path_entry("k1", "weak-scaling harness (one NCCL rank)", scale["launches"]["k1"],
+                          scale["k1"]))
+    out.append(entry(
+        "scatter_add (K2), weak-scaling harness (one NCCL rank)", "scatter.cu",
+        "ray_tracing_tpu/ops/pallas_scatter.py:82", scale["launches"]["k2"], scale["k2_err"],
+        scale["k2"]["kernel"][0], scale["k2"]["plain"][0], scale["k2"]["bound"],
+        scale["k2"]["index_add_"][0]))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2961,16 +3482,15 @@ def main() -> int:
     cli_run = timed("phases 24-25 (CLI)", cli_phases, smi, renderer.tile_size)
     noise = timed("phase 26 (render_to_noise on C6)", noise_phase, smi)
     gallery = timed("phase 27 (gallery C3, C4)", gallery_phase, smi)
-    train = timed("phases 28-30 (train steps, autograd surface)", train_phases, smi)
+    train = timed("phases 28-30 (train steps, autograd surface)", train_phases, smi, SIZE,
+                  GRAD_DEPTH)
     timed("phase 31 (fit examples)", examples_phase, smi)
     wk = timed("phases 32-33 (weekend through the editor and v4ray facade)", weekend_phases, smi)
     web = timed("phase 34 (web editor)", web_phase, smi)
-
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
-        return {"name": name, "route": "cuda", "source": f"ray_tracing_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-                "library_ms": library_ms}
+    gallery_run = timed("phase 35 (gallery runner C1-C6)", baselines_phase, smi)
+    demo = timed("phase 36 (motion-blur demo)", motion_demo_phase, smi)
+    walk = timed("phase 37 (BVH walk)", bvh_phase, smi)
+    scale = timed("phase 38 (weak-scaling harness, one NCCL rank)", scaling_phase, smi)
 
     # one K1 entry per zy path, each with the count of its own run
     intersect = "ray_tracing_tpu/ops/pallas_intersect.py:116"
@@ -3048,6 +3568,9 @@ def main() -> int:
               "ray_tracing_tpu/ops/pallas_triangles.py:147", web["k5"], web["k5_err"],
               web["k5_ms"], web["k5_plain_ms"], web["k5_bound"]),
     ]}
+    # this slice's paths: the gallery runner, the motion demo, the BVH
+    # walk's passes and the weak-scaling harness (phases 35-38)
+    record["kernels"] += path_entries(gallery_run, demo, walk, scale)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,10 @@ rays of a render pass or a train step over a ``torch.distributed``
 process group; ``examples`` holds the three fit scripts.  ``python -m
 ray_tracing_tpu_torch.cli`` renders a JSON scene progressively to an
 image file (utils/: image, checkpoint and stats); ``scenes`` builds the
-gallery's C3, C4 and C6 and the motion-blur example.  ``v4ray`` is the
+gallery's C3, C4 and C6 and the motion-blur example, and
+``examples.render_baselines`` and ``examples.motion_blur`` render them.
+A scene with a BVH and neither sweep nor cluster tables takes the BVH
+walk (ops/bvh.py, plain PyTorch).  ``v4ray`` is the
 reference's Python API over the port (``Scene``, an awaitable
 ``Renderer.render()``), ``v4ray_frontend`` the editor's plugins and
 ``editor`` the scene editor's core and its web server (``python -m
@@ -32,6 +35,7 @@ from ray_tracing_tpu_torch.models.compiler import (
     load_scene_json,
 )
 from ray_tracing_tpu_torch.models.scene import SceneData, scene_from_numpy
+from ray_tracing_tpu_torch.ops.geometry import EPSILON  # reference src/lib.rs:34
 from ray_tracing_tpu_torch.render.renderer import (
     Renderer,
     RendererParam,
@@ -52,4 +56,5 @@ __all__ = [
     "build_scene",
     "load_scene_json",
     "scene_from_numpy",
+    "EPSILON",
 ]

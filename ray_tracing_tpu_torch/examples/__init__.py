@@ -4,7 +4,10 @@ package's ``examples/fit_albedo.py``, ``fit_materials.py`` and
 (default ``cuda``).  Run as ``python -m
 ray_tracing_tpu_torch.examples.fit_materials --device cpu``.
 ``weekend_scene`` writes the editor's "One Weekend" project file, the
-counterpart of ``examples/weekend_scene.py``."""
+counterpart of ``examples/weekend_scene.py``; ``render_baselines``
+renders the gallery C1-C6 and ``motion_blur`` the motion-blur demo, the
+counterparts of ``examples/render_baselines.py`` and
+``examples/motion_blur.py``."""
 
 import torch
 

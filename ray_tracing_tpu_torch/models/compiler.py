@@ -380,11 +380,12 @@ class SceneBuilder:
         visiting.remove(idx)
         return d
 
-    def _morton_sort(self) -> None:
+    def _morton_sort(self):
         """Sort the triangle list in Morton order of the triangles' AABB
         centroids and remap the triangle lights, as the JAX package does
         before its BVH build (ray_tracing_tpu/models/compiler.py:
-        _build_bvh), so triangle indices agree between the packages."""
+        _build_bvh), so triangle indices agree between the packages.
+        Returns the boxes (tri_min, tri_max) in the new order."""
         v = np.stack([t["v"] for t in self._triangles]).astype(np.float32)
         tmin = v.min(axis=1)
         tmax = v.max(axis=1)
@@ -399,16 +400,20 @@ class SceneBuilder:
         self._lights = [
             (k, int(inverse[i]) if k == LIGHT_TRIANGLE else i, t) for (k, i, t) in self._lights
         ]
+        return tmin[order], tmax[order]
 
-    def build(self) -> SceneData:
+    def build(self, bvh: bool = False) -> SceneData:
+        """The compiled scene.  With ``bvh`` it carries the BVH the JAX
+        package's compiler builds over the Morton-sorted mesh and neither
+        sweep nor cluster tables, so that the renderer walks the BVH
+        (ops/bvh.py:with_bvh); that needs ``BVH_THRESHOLD`` triangles."""
         f32, i32 = np.float32, np.int32
 
         def t(x):
             return torch.from_numpy(np.ascontiguousarray(x))
 
         nt = len(self._triangles)
-        if nt >= self.BVH_THRESHOLD:
-            self._morton_sort()
+        boxes = self._morton_sort() if nt >= self.BVH_THRESHOLD else (None, None)
 
         ns = len(self._spheres)
         has_motion = any(np.any(s["vel"] != 0) for s in self._spheres)
@@ -554,7 +559,7 @@ class SceneBuilder:
             index=tuple(l[1] for l in self._lights),
             transform=tuple(l[2] for l in self._lights),
         )
-        return with_phase_a_tables(SceneData(
+        scene = with_phase_a_tables(SceneData(
             spheres=spheres,
             triangles=triangles,
             rects=rects,
@@ -571,6 +576,14 @@ class SceneBuilder:
             n_lights=len(self._lights),
             n_medium=len(self._media),
         ))
+        if not bvh:
+            return scene
+        if boxes[0] is None:
+            raise ValueError(f"a BVH needs a mesh of at least {self.BVH_THRESHOLD} triangles, "
+                             f"this scene has {nt}")
+        from ray_tracing_tpu_torch.ops.bvh import with_bvh
+
+        return with_bvh(scene, *boxes)
 
 
 # ---------------------------------------------------------------------- #
@@ -755,9 +768,10 @@ class _JsonVisitor:
         self.b.add_medium(d["density"], material, **boundary, **kw)
 
 
-def build_scene(param: dict, base_dir: str = ".", noise_seed: int = 0) -> SceneBundle:
+def build_scene(param: dict, base_dir: str = ".", noise_seed: int = 0,
+                bvh: bool = False) -> SceneBundle:
     """Dict (parsed reference-schema JSON) -> compiled SceneBundle
-    (reference json.rs:702-720)."""
+    (reference json.rs:702-720); ``bvh`` as in :meth:`SceneBuilder.build`."""
     builder = SceneBuilder(
         background=param.get("background", (0.0, 0.0, 0.0)),
         environment=param.get("environment", (0.0, 0.0, 0.0)),
@@ -769,12 +783,12 @@ def build_scene(param: dict, base_dir: str = ".", noise_seed: int = 0) -> SceneB
     return SceneBundle(
         renderer=RendererParam.from_json(param["renderer"]),
         camera=CameraParam.from_json(param["camera"]),
-        scene=builder.build(),
+        scene=builder.build(bvh=bvh),
     )
 
 
-def load_scene_json(path: str, noise_seed: int = 0) -> SceneBundle:
+def load_scene_json(path: str, noise_seed: int = 0, bvh: bool = False) -> SceneBundle:
     with open(path) as fh:
         param = json.load(fh)
     return build_scene(param, base_dir=os.path.dirname(os.path.abspath(path)),
-                       noise_seed=noise_seed)
+                       noise_seed=noise_seed, bvh=bvh)

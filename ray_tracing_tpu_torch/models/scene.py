@@ -10,7 +10,8 @@ facts (counts, the light list) are plain Python values.
 The port renders spheres (moving ones too), axis-aligned rects and
 triangles, instancing transforms and constant media.  Triangle tables
 carry the dense-sweep constants and, when the compiler Morton-sorts
-them, the two-level cluster tables; the JAX package's BVH is not built.
+them, the two-level cluster tables; the port's compiler builds no BVH
+(ops/bvh.py), a scene from the JAX package may bring one.
 The tables compare field by field with the JAX package's.
 """
 
@@ -490,6 +491,10 @@ class SceneData(_Table):
     # phase A's sphere and rect tables in the kernels' layout, packed once
     # per scene by with_phase_a_tables (the compiler and scene_from_numpy)
     phase_a: Optional[PhaseATables] = None
+    # the triangles' BVH (ops/bvh.py:BVHTable), walked when the table has
+    # neither sweep nor cluster tables; from the JAX package's scene
+    # (scene_from_numpy) or SceneBuilder.build(bvh=True)
+    bvh: Optional["BVHTable"] = None
 
     @property
     def has_lights(self) -> bool:
@@ -528,17 +533,20 @@ def scene_from_numpy(tree) -> SceneData:
     arrays: the JAX package's ``SceneData`` after
     ``jax.tree.map(np.asarray, scene)``, or a port scene on the CPU.
 
-    The cluster tables, sphere velocities and the shutter come across;
-    the JAX package's BVH is dropped.  A mesh above ``SWEEP_MAX_TRIS``
-    triangles without cluster tables would need the BVH walk, which is
-    not ported: that raises ``NotImplementedError``.
+    The cluster tables, the BVH, sphere velocities and the shutter come
+    across.  A mesh above ``SWEEP_MAX_TRIS`` triangles with neither
+    cluster tables nor a BVH would need the JAX package's XLA sweep over
+    the whole table, which is not ported: that raises
+    ``NotImplementedError``.
     """
+    from ray_tracing_tpu_torch.ops.bvh import BVHTable
     from ray_tracing_tpu_torch.ops.intersect import SWEEP_MAX_TRIS
 
-    if int(tree.n_triangles) > SWEEP_MAX_TRIS and tree.triangles.cl_d0 is None:
+    bvh = tree.bvh
+    if int(tree.n_triangles) > SWEEP_MAX_TRIS and tree.triangles.cl_d0 is None and bvh is None:
         raise NotImplementedError(
-            f"a mesh above {SWEEP_MAX_TRIS} triangles without cluster tables needs the "
-            "BVH walk, which is not ported yet, see ROADMAP"
+            f"a mesh above {SWEEP_MAX_TRIS} triangles with neither cluster tables nor a BVH "
+            "needs the XLA sweep over the whole table, which is not ported yet, see ROADMAP"
         )
     tt = tree.textures
     lt = tree.lights
@@ -576,6 +584,7 @@ def scene_from_numpy(tree) -> SceneData:
         n_lights=int(tree.n_lights),
         n_medium=int(tree.n_medium),
         shutter=None if tree.shutter is None else torch.from_numpy(np.array(tree.shutter)),
+        bvh=None if bvh is None else _tensors(BVHTable, bvh),
     ))
 
 

@@ -133,6 +133,17 @@ def rect_normal(axis, positive):
     return rect_basis(axis)[2] * sign[..., None]
 
 
+def aabb_hit(ro, rd_inv, bb_min, bb_max, t_min, t_max):
+    """Slab test (reference src/ray.rs:167-189); rd_inv = 1 / rd."""
+    t0 = (bb_min - ro) * rd_inv
+    t1 = (bb_max - ro) * rd_inv
+    lo = torch.as_tensor(t_min, dtype=torch.float32, device=ro.device)
+    hi = torch.as_tensor(t_max, dtype=torch.float32, device=ro.device)
+    near = torch.maximum(torch.minimum(t0, t1).amax(dim=-1), lo)
+    far = torch.minimum(torch.maximum(t0, t1).amin(dim=-1), hi)
+    return near <= far
+
+
 def face_normal(rd, outward_normal):
     """Flip the geometric normal against the ray (reference
     src/hittable/mod.rs:145-155)."""

@@ -10,7 +10,9 @@ Two phases:
   when a table carries transforms, K3, or with moving spheres K4
   (ops/cuda_intersect.py); then triangles, through the dense sweep K5
   or, for a mesh above ``SWEEP_MAX_TRIS`` triangles, the cluster sweep
-  K6 (ops/cuda_triangles.py); then constant media, in plain PyTorch.
+  K6 (ops/cuda_triangles.py), or for a scene with a BVH and neither,
+  the BVH walk in plain PyTorch (ops/bvh.py); then constant media, in
+  plain PyTorch.
   This is the TPU's order; on the CPU the plain versions run in the
   same order.  A later kind wins only with a strictly smaller t.
 * **Phase B** gathers the one winning primitive per ray and re-runs
@@ -30,7 +32,7 @@ import functools
 import torch
 
 from ray_tracing_tpu_torch.models.scene import SceneData
-from ray_tracing_tpu_torch.ops import cuda_triangles
+from ray_tracing_tpu_torch.ops import bvh, cuda_triangles
 from ray_tracing_tpu_torch.ops import geometry as geo
 
 INF = geo.INF
@@ -132,23 +134,32 @@ def _triangle_phase_b(scene: SceneData, ro, rd, t_min, t_max, idx):
 
 
 def mesh_strategy(scene: SceneData) -> str:
-    """The triangle strategy, as the JAX package chooses it: "none"
-    without triangles, "sweep" (the dense sweep, K5) for a table with
-    sweep constants of at most ``SWEEP_MAX_TRIS`` triangles, "cluster"
-    (the cluster sweep, K6) for a larger table with cluster tables.
-    Anything else would need the BVH walk, which is not ported: that
-    raises, and no sweep runs in its place."""
+    """The triangle strategy, in the JAX package's automatic order:
+    "none" without triangles, "sweep" (the dense sweep, K5) for a table
+    with sweep constants of at most ``SWEEP_MAX_TRIS`` triangles,
+    "cluster" (the cluster sweep, K6) for a table with cluster tables,
+    "bvh" (the skip-link walk, ops/bvh.py) for a scene with a BVH.  The
+    JAX package's two remaining tails are not ported and raise: its XLA
+    sweep over a table above ``SWEEP_MAX_TRIS`` with neither clusters nor
+    BVH, and its brute-force grid over a table without sweep constants.
+    Neither is reached by a compiled scene."""
     if scene.n_triangles == 0:
         return "none"
-    if scene.triangles.has_sweep and scene.n_triangles <= SWEEP_MAX_TRIS:
+    tr = scene.triangles
+    if tr.has_sweep and scene.n_triangles <= SWEEP_MAX_TRIS:
         return "sweep"
-    if scene.triangles.has_clusters:
+    if tr.has_clusters:
         return "cluster"
+    if scene.bvh is not None:
+        return "bvh"
+    if tr.has_sweep:
+        raise NotImplementedError(
+            f"a mesh of {scene.n_triangles} triangles (above SWEEP_MAX_TRIS = {SWEEP_MAX_TRIS}) "
+            "with neither cluster tables nor a BVH needs the JAX package's XLA sweep over the "
+            "whole table, which is not ported yet, see ROADMAP")
     raise NotImplementedError(
-        f"a mesh of {scene.n_triangles} triangles "
-        f"({'with' if scene.triangles.has_sweep else 'without'} sweep constants, without "
-        "cluster tables) needs the BVH walk, which is not ported yet, see ROADMAP"
-    )
+        f"a mesh of {scene.n_triangles} triangles without sweep constants, cluster tables or "
+        "a BVH needs the JAX package's brute-force grid, which is not ported yet, see ROADMAP")
 
 
 def _boundary_nearest(bd, ro, rd, t_lo, t_hi):
@@ -251,6 +262,9 @@ def intersect_scene(scene: SceneData, ro, rd, t_min: float, t_max: float, med_u=
                          KIND_TRIANGLE)
     elif strategy == "cluster":
         consider_per_ray(*cuda_triangles.cluster_sweep(tr, ro_d, rd_d, t_min, t_max),
+                         KIND_TRIANGLE)
+    elif strategy == "bvh":
+        consider_per_ray(*bvh.bvh_traverse_triangles(scene.bvh, ro_d, rd_d, t_min, t_max),
                          KIND_TRIANGLE)
     if scene.n_medium:
         t, mask = _medium_phase_a(scene, ro, rd, t_min, t_max, med_u)

@@ -54,9 +54,10 @@ def earth_sphere():
     return b.build(), cam, RendererParam(512, 512)
 
 
-def bunny():
+def bunny(bvh: bool = False):
     """C4: one white lambertian bunny on a ground rect at y = 0.033, sky
-    background; 512^2 at the renderer's default depth."""
+    background; 512^2 at the renderer's default depth.  ``bvh``: the
+    scene the renderer walks by its BVH (SceneBuilder.build)."""
     b = SceneBuilder(background=(0.7, 0.8, 1.0))
     white = b.add_lambertian(b.add_texture_solid((0.73, 0.73, 0.73)))
     ground = b.add_lambertian(b.add_texture_solid((0.4, 0.5, 0.4)))
@@ -64,7 +65,7 @@ def bunny():
     b.add_mesh_triangles(pts, nrm, uvs, white)
     b.add_rect("zx", -5, 5, -5, 5, 0.033, ground, positive=True)
     cam = CameraParam((-0.2, 0.25, 0.35), (-0.02, 0.1, 0.0), 35)
-    return b.build(), cam, RendererParam(512, 512)
+    return b.build(bvh=bvh), cam, RendererParam(512, 512)
 
 
 def bunny_grid():

@@ -24,16 +24,19 @@ PKG = os.path.dirname(prt.__file__)
 
 def _assert_tables_equal(ours, ref, path="scene"):
     """Every field of the port's table equals the same-named field of
-    the JAX table exactly (values, dtype and shape); the JAX package's
-    BVH and cluster tables, which the port does not build, are not
-    fields of the port's tables.  The CUDA sweeps' packed tables
-    (``sw_table``, ``sw_aabb``) and phase A's (``phase_a``) have no JAX
-    field of that name; tests/test_torch_sweep_cull.py and
-    tests/test_torch_phase_a_tables.py hold them against fresh packs."""
+    the JAX table exactly (values, dtype and shape).  The CUDA sweeps'
+    packed tables (``sw_table``, ``sw_aabb``) and phase A's (``phase_a``)
+    have no JAX field of that name; tests/test_torch_sweep_cull.py and
+    tests/test_torch_phase_a_tables.py hold them against fresh packs.
+    The BVH is compared where the port's table has one: its compiler
+    builds one only when asked (``SceneBuilder.build(bvh=True)``,
+    tests/test_torch_bvh.py)."""
     for f in dataclasses.fields(ours):
         if f.name in ("sw_table", "sw_aabb", "phase_a"):
             continue
         mine, theirs = getattr(ours, f.name), getattr(ref, f.name)
+        if f.name == "bvh" and mine is None:
+            continue
         where = f"{path}.{f.name}"
         if isinstance(mine, torch.Tensor):
             theirs = np.asarray(theirs)
@@ -73,18 +76,26 @@ def test_scene_from_numpy_round_trips(bundles):
 
 
 def test_scene_from_numpy_refuses_unported_jax_scene():
-    """A mesh above SWEEP_MAX_TRIS without cluster tables needs the BVH
-    walk, which is not ported.  Moving spheres (K4) and cluster tables
+    """A JAX scene whose mesh is above SWEEP_MAX_TRIS without cluster
+    tables bridges with its BVH and takes the walk ("bvh"); without a
+    BVH either it would need the JAX package's XLA sweep, which is not
+    ported: that is refused.  Moving spheres (K4) and cluster tables
     (K6) bridge with their velocities and tables."""
+    from ray_tracing_tpu_torch.ops.intersect import mesh_strategy
+
     b = jrt.SceneBuilder()
     b.add_sphere_moving((0, 0, 0), (1, 0, 0), 1.0, b.add_lambertian(b.add_texture_solid((1, 1, 1))))
     moving = b.build()
     _assert_tables_equal(prt.scene_from_numpy(jax.tree.map(np.asarray, moving)), moving)
     scene = jrt.load_scene_json("data/scene.json").scene.replace(n_triangles=40000)
-    assert prt.scene_from_numpy(jax.tree.map(np.asarray, scene)).triangles.has_clusters
+    bridged = prt.scene_from_numpy(jax.tree.map(np.asarray, scene))
+    assert bridged.triangles.has_clusters and mesh_strategy(bridged) == "cluster"
     scene = scene.replace(triangles=scene.triangles.replace(cl_d0=None))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        prt.scene_from_numpy(jax.tree.map(np.asarray, scene))
+    bridged = prt.scene_from_numpy(jax.tree.map(np.asarray, scene))
+    assert mesh_strategy(bridged) == "bvh"
+    _assert_tables_equal(bridged.bvh, scene.bvh, "scene.bvh")
+    with pytest.raises(NotImplementedError, match="XLA sweep"):
+        prt.scene_from_numpy(jax.tree.map(np.asarray, scene.replace(bvh=None)))
 
 
 def test_scene_to_device_keeps_tables(bundles):
@@ -169,7 +180,7 @@ def test_port_never_imports_jax_or_the_jax_package():
     sources = []
     for root, _, files in os.walk(PKG):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
-    sources.append("chip_smoke.py")
+    sources += ["chip_smoke.py", "bench_scaling_torch.py"]
     assert len(sources) > 10
     for src in sources:
         with open(src) as fh:

@@ -26,11 +26,11 @@ from ray_tracing_tpu_torch.ops import intersect as pintersect
 torch.set_num_threads(2)
 
 
-def _bunny(builder_cls, loader):
+def _bunny(builder_cls, loader, **build):
     b = builder_cls(background=(0.2, 0.2, 0.2))
     white = b.add_lambertian(b.add_texture_solid((0.7, 0.7, 0.7)))
     b.add_mesh_triangles(*loader("data/bunny.obj"), white)
-    return b.build()
+    return b.build(**build)
 
 
 @pytest.fixture(scope="module")
@@ -172,9 +172,10 @@ def test_sweep_on_cpu_takes_the_plain_version(scenes):
 
 def test_mesh_strategy_is_the_sweep_or_refuses(scenes):
     """The dense sweep up to SWEEP_MAX_TRIS, the cluster sweep above it or
-    without sweep constants, as the JAX package chooses; a table without
-    cluster tables that the sweep cannot take needs the BVH walk, which
-    is refused."""
+    without sweep constants, then the BVH walk, as the JAX package
+    chooses; a table with neither cluster tables nor a BVH that the sweep
+    cannot take needs the JAX package's XLA sweep or brute-force grid,
+    which are refused."""
     ours, ref = scenes
     assert pintersect.mesh_strategy(ours) == "sweep"
     too_many = dataclasses.replace(ours, n_triangles=pintersect.SWEEP_MAX_TRIS + 1)
@@ -185,9 +186,11 @@ def test_mesh_strategy_is_the_sweep_or_refuses(scenes):
     assert jintersect.mesh_strategy(ref.replace(n_triangles=pintersect.SWEEP_MAX_TRIS + 1)) == "cluster"
     unclustered = [dataclasses.replace(s, triangles=dataclasses.replace(s.triangles, cl_d0=None))
                    for s in (too_many, no_sweep)]
+    tree = _bunny(SceneBuilder, load_triangles, bvh=True).bvh
     for scene in unclustered:
         with pytest.raises(NotImplementedError, match="not ported yet"):
             pintersect.mesh_strategy(scene)
+        assert pintersect.mesh_strategy(dataclasses.replace(scene, bvh=tree)) == "bvh"
     with pytest.raises(NotImplementedError, match="not ported yet"):
         pintersect.intersect_scene(unclustered[1], torch.zeros((4, 3)), torch.ones((4, 3)), 1e-3,
                                    np.inf)
