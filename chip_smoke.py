@@ -236,7 +236,35 @@ Phases (any failure raises and exits non-zero):
      unsharded run's, K1 and K2 launched in the timed passes; then, in
      this process, K1 against its plain version on the harness's rank-0
      rays and K2 against scatter_add_plain on the rows of one fwd+bwd of
-     them, each timed there (K2 beside index_add_).
+     them, each timed there (K2 beside index_add_);
+ 39. the headline bench: bench_torch.main(passes=1, reps=1) at its own
+     1024x1024, depth 20, tiles of 65,536 (a count, a warm-up and one
+     timed pass), driven with every count at 0 just before: the record
+     has exactly bench.py's keys, metric, unit and mode and a finite
+     positive value; its segments equal traced_segments at key 1; its
+     loss and five gradient leaves equal grad_pass at key 1, torch.equal;
+     K1 launched and K2 called once per tile of both passes; then K1
+     against its plain version on the pass's first camera tile and K2 on
+     that tile's depth-20 sweep rows (bit for bit against the CPU,
+     repeated), each timed there (K2 beside index_add_);
+ 40. the perf ladder (tools/perf/ladder_torch.py): its three stages, one
+     round at 1024x1024 depth GRAD_DEPTH, with every count at 0 just
+     before (K1 launched, K2 once per tile of each colors and full
+     pass); colors and full at key 1 give the same loss and color-linear
+     leaves, torch.equal, and colors no fuzz or IR gradient;
+ 41. tools/perf/profile_pass_torch.py on one tile of the full stage at
+     depth GRAD_DEPTH, in a fresh process: exit 0 (every kernel family's
+     profiled launches equal its wrapper's counter), K1 and K2 listed;
+     then the two mesh tails of mesh_strategy: TAIL_COPIES offset bunnies
+     (34,776 triangles) without cluster tables take "sweep" (K5 over the
+     whole table) in a TAIL_SIZE^2 depth-TAIL_DEPTH render with every
+     count at 0 just before (K5 launched, K6 not), K5 against its dense
+     plain version on that render's camera rays and on rays aimed at the
+     bunnies (t bit-equal), timed against its bound; C4's bunny without
+     sweep constants takes "brute" (plain PyTorch): a BRUTE_SIZE^2
+     depth-1 render finite and repeated torch.equal with no sweep
+     launched, its depth-2 mean within 1e-3 of K5's, its phase-A winners
+     equal K5's (t to BRUTE_RTOL, the triangle equal but at ties).
 Every kernel time comes with its bound (bound()): the larger of its
 operations over the float32 peak and its bytes over the memory rate,
 counted from this run's inputs (phase_a_bound: one object ray per ray
@@ -262,8 +290,10 @@ kernel of each gallery configuration with the launches of its run in
 phase 35, K4 with those of phase 36's demo, K1 with those of each of
 phase 37's passes through the BVH walk and K5 with those of its sweep
 pass, K1 and K2 with rank 0's launches in the harness's timed passes
-(phase 38); each of phases 35-38's entries with the kernel held against
-its plain version and timed on that path's own rays), the card's name
+(phase 38), K1 and K2 with the launches of the bench's run (phase 39)
+and K5 with those of the sweep tail's render (phase 41); each of phases
+35-41's entries with the kernel held against its plain version and
+timed on that path's own rays), the card's name
 and power limit, and a JSON device record.  Launch counts
 are read only around single-threaded runs (phase 33's two threads
 count approximately and are not recorded).
@@ -430,6 +460,9 @@ def profile_pair(kernel_fn, plain_fn, calls: int, kernel_name: str):
     others the plain version's.  "not measured" where the profiler saw
     none."""
     _, kernels = profile_device(lambda: [(kernel_fn(), plain_fn()) for _ in range(calls)])
+    seen = sum(n for name, (n, _) in kernels.items() if kernel_name in name)
+    if seen < calls:  # the profiler fault of ROADMAP Queue 2 item 4: where it strikes
+        print(f"[profiler] {kernel_name}: the session saw {seen} launches of {calls} calls")
     rest = [ms for name, (_, ms) in kernels.items() if kernel_name not in name]
     return per_launch(kernels, kernel_name), sum(rest) / calls if rest else "not measured"
 
@@ -3291,6 +3324,248 @@ def harness_kernels() -> dict:
     return {"k1": rows["k1"], "k2_err": err, "k2": k2}
 
 
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "mode", "spread")  # bench.py's record
+BENCH_SPREAD = ("blocks", "passes_per_block", "min", "max")
+BENCH_METRIC = "zy_scene 1024^2 fwd+bwd rays/s/chip"
+# the seven offset bunnies of phase 41 (scenes.bunny_copies(7): 34,776
+# triangles, above SWEEP_MAX_TRIS) with their cluster tables dropped, seen
+# from in front and above, rendered at TAIL_SIZE^2 depth TAIL_DEPTH
+TAIL_COPIES, TAIL_SIZE, TAIL_DEPTH = 7, 256, 3
+BRUTE_SIZE = 128  # the depth-1 render of C4's bunny through the brute-force grid
+BRUTE_RTOL = 1e-5  # Moeller-Trumbore's t against K5's (tests/test_torch_triangles.py)
+
+
+def bench_phase(smi: str) -> dict:
+    """Phase 39 on the card: bench_torch.main(passes=1, reps=1) at the
+    bench's own 1024^2 and depth 20, driven with every count at 0 just
+    before: the record has exactly bench.py's keys and a finite positive
+    value; its segments equal traced_segments at the same key; its loss
+    and five gradient leaves equal grad_pass (tiled_loss_and_grad) at the
+    same key, torch.equal; K1 launched and K2 called once per tile of
+    each pass.  Then K1 and K2 held against their plain versions on the
+    bench's own tensors (tile 0 of key 1: its camera rays, its sweep rows
+    at depth 20) and timed there.  Returns the numbers the kernel record
+    needs."""
+    import math
+
+    import torch
+
+    import bench_torch
+    from ray_tracing_tpu_torch import load_scene_json
+    from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import cuda_scatter as cs
+    from ray_tracing_tpu_torch.ops import rng
+    from ray_tracing_tpu_torch.render.prb_scalar import AllParams, params_of
+
+    details = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    rec = bench_torch.main(passes=1, reps=1, details=details)
+    wall = time.perf_counter() - t0
+    launches = {"k1": ci.LAUNCHES, "k2": cs.LAUNCHES}
+    print(f"[39] bench_torch.main(passes=1, reps=1) in {wall!r} s (count, warm-up, one timed "
+          f"pass): {json.dumps(rec)}; launches {launches}; block CUDA-event ms "
+          f"{details['block_event_ms']!r}; max_memory_allocated "
+          f"{details['max_memory_allocated']}; card: {smi}")
+    check(tuple(rec) == BENCH_KEYS and tuple(rec["spread"]) == BENCH_SPREAD,
+          f"the record has exactly bench.py's keys ({list(rec)})")
+    check(rec["metric"] == BENCH_METRIC and rec["unit"] == "rays/s" and rec["mode"] == "prb",
+          "the record names bench.py's metric, unit and mode")
+    check(math.isfinite(rec["value"]) and rec["value"] > 0, "the bench's value is finite, > 0")
+    check(details["depth"] == DEPTH and details["tile"] == TILE, "the bench ran at depth 20, "
+          "tiles of 65,536")
+    n_tiles = SIZE * SIZE // TILE
+    check(launches["k1"] > 0 and launches["k2"] == 2 * n_tiles, "the bench launched K1 and "
+          "called K2 once per tile of its two passes (warm-up, timed)")
+
+    bundle = load_scene_json(os.path.join(ROOT, "data", "zy_scene.json"))
+    scene = bundle.scene.to("cuda")
+    cam = Camera.build(bundle.camera, 1.0).to("cuda")
+    ro, rd, _, k_trace = camera_rays(cam, rng.key(1), SIZE, SIZE, True)
+    segments = traced_segments(scene, ro, rd, k_trace, DEPTH)
+    print(f"[39] traced_segments at key 1: {segments}; the bench counted {details['segments']}")
+    check(details["segments"] == [segments], "the bench counts the segments bench.py counts")
+    loss, grads = grad_pass(params_of(scene), scene, ro, rd, k_trace,
+                            lambda rad, rows: torch.sum(rad), DEPTH)
+    equal = {f: bool(torch.equal(getattr(grads, f), getattr(details["grads"], f)))
+             for f in AllParams._fields}
+    print(f"[39] grad_pass at key 1: loss {float(loss)!r} (the bench's {float(details['loss'])!r}"
+          f"), torch.equal {bool(torch.equal(loss, details['loss']))}; leaves torch.equal {equal}")
+    check(bool(torch.equal(loss, details["loss"])) and all(equal.values()),
+          "the bench's pass is the library's: loss and five leaves torch.equal")
+
+    k1 = path_kernels(("k1",), scene, ro[:TILE], rd[:TILE], "the bench's key-1 camera tile 0",
+                      "39")["k1"]
+    tile_rows, p_table = tile_segments(scene, ro, rd, k_trace, DEPTH)
+    before = cs.LAUNCHES
+    k2_err = compare_k2(cs, p_table, tile_rows, "the bench's key-1 tile 0 sweep (depth 20)",
+                        "39")
+    k2 = time_k2(cs, p_table, tile_rows, torch.device("cuda"), "39", "bench (depth 20)")
+    cs.LAUNCHES = before
+    return {"record": rec, "launches": launches, "k1": k1, "k2_err": k2_err, "k2": k2,
+            "segments": segments}
+
+
+def ladder_phase(smi: str) -> dict:
+    """Phase 40 on the card: tools/perf/ladder_torch.py's three stages,
+    one round at 1024^2 depth GRAD_DEPTH (main(["--reps=1"])), driven with
+    every count at 0 just before: K1 launched, K2 by colors and full
+    only; then colors and full at key 1: the loss and the color-linear
+    leaves torch.equal, colors' fuzz and IR gradients zero.  Returns the ms per
+    pass of each stage."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools", "perf"))
+    import ladder_torch
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import cuda_scatter as cs
+    from ray_tracing_tpu_torch.ops import rng
+
+    reset_counts()
+    results = ladder_torch.main(["--reps=1"], depth=GRAD_DEPTH)
+    launches = {"k1": ci.LAUNCHES, "k2": cs.LAUNCHES}
+    n_tiles = SIZE * SIZE // TILE
+    print(f"[40] the ladder at {SIZE}^2 depth {GRAD_DEPTH}, one round: ms per pass {results!r}; "
+          f"launches {launches}; card: {smi}")
+    # warm-up and PASSES passes of colors and of full, one K2 call a tile each
+    check(launches["k1"] > 0 and launches["k2"] == 2 * (1 + ladder_torch.PASSES) * n_tiles,
+          "the ladder launched K1, and K2 once per tile of each colors and full pass")
+    setup = ladder_torch.Setup(depth=GRAD_DEPTH)
+    c_loss, c_grads = ladder_torch.STAGES["colors"](setup, rng.key(1))
+    f_loss, f_grads = ladder_torch.STAGES["full"](setup, rng.key(1))
+    equal = {f: bool(torch.equal(getattr(c_grads, f), getattr(f_grads, f))) for f in COLOR_LINEAR}
+    print(f"[40] colors vs full at key 1: loss {float(c_loss)!r} / {float(f_loss)!r}; "
+          f"color-linear leaves torch.equal {equal}")
+    check(bool(torch.equal(c_loss, f_loss)) and all(equal.values()),
+          "the colors stage's loss and color-linear leaves equal the full stage's")
+    check(not bool(c_grads.fuzz.any()) and not bool(c_grads.ir.any()),
+          "colors runs no tangent pass")
+    return results
+
+
+def profile_tails_phase(smi: str) -> dict:
+    """Phase 41 on the card: tools/perf/profile_pass_torch.py on one tile
+    of the full stage at depth GRAD_DEPTH in a fresh process (its exit 0
+    means every kernel family's profiled launches equal its wrapper's
+    counter), K1 and K2 among them; then the two mesh tails of
+    mesh_strategy: seven offset bunnies (34,776 triangles) without
+    cluster tables take "sweep", K5 over the whole table, in a
+    TAIL_SIZE^2 depth-TAIL_DEPTH render driven with every count at 0 just
+    before (K5 launched, K6 not) and K5 held against its dense plain
+    version on that render's camera rays (path_kernels) and on 65,536
+    rays aimed at the bunnies (copies_rays); C4's bunny
+    without sweep constants takes "brute", the plain Moeller-Trumbore
+    grid: a BRUTE_SIZE^2 depth-1 render finite and repeated torch.equal,
+    no sweep launched, its depth-2 image mean within 1e-3 of K5's, and
+    its phase-A winners against K5's on C4's full table for the same
+    camera rays (kind and hit equal, t to BRUTE_RTOL, the triangle equal
+    where the two t are not tied within it).  Returns what the kernel
+    record needs."""
+    import dataclasses
+
+    import torch
+
+    from ray_tracing_tpu_torch import CameraParam, EPSILON, Renderer, RendererParam, scenes
+    from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
+    from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+    from ray_tracing_tpu_torch.ops import cuda_triangles as ct
+    from ray_tracing_tpu_torch.ops import rng
+    from ray_tracing_tpu_torch.ops.intersect import (
+        KIND_TRIANGLE,
+        SWEEP_MAX_TRIS,
+        intersect_scene,
+        mesh_strategy,
+    )
+
+    code = ("import sys; sys.path.insert(0, 'tools/perf'); import profile_pass_torch; "
+            f"profile_pass_torch.main('full', 12, tiles=1, depth={GRAD_DEPTH})")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    print("\n".join(f"[41] {line}" for line in run.stdout.splitlines()))
+    check(run.returncode == 0, f"profile_pass_torch exited {run.returncode}: "
+          f"{run.stderr[-2000:]}")
+    summary = json.loads([x for x in run.stdout.splitlines() if x.startswith("{")][-1])
+    print(f"[41] the profile's process took {wall!r} s; busy share {summary['busy_share']!r}")
+    check(summary["families"]["K1"] == summary["counted"]["K1"] > 0
+          and summary["families"]["K2"] == summary["counted"]["K2"] > 0,
+          "the profile lists K1 and K2 with the launches their wrappers counted")
+
+    def bare(scene, prefixes):
+        tr = scene.triangles
+        return dataclasses.replace(scene, triangles=dataclasses.replace(tr, **{
+            f.name: None for f in dataclasses.fields(tr) if f.name.startswith(prefixes)}))
+
+    t0 = time.perf_counter()
+    tail_host = bare(scenes.bunny_copies(TAIL_COPIES), ("cl_",))
+    print(f"[41] {TAIL_COPIES} offset bunnies: {tail_host.n_triangles} triangles, compiled in "
+          f"{time.perf_counter() - t0!r} s")
+    check(tail_host.n_triangles > SWEEP_MAX_TRIS and mesh_strategy(tail_host) == "sweep",
+          "a table above SWEEP_MAX_TRIS without clusters or BVH takes the sweep")
+    tail_cam = CameraParam(look_from=(0.0, 0.55, 0.9), look_at=(0.0, 0.08, -0.6), vfov=60)
+    r = Renderer(RendererParam(TAIL_SIZE, TAIL_SIZE, max_depth=TAIL_DEPTH), tail_cam, tail_host,
+                 device="cuda")
+    r.render(1)  # warm-up
+    reset_counts()
+    img, tail_ms = elapsed_ms(lambda: r.render(0))
+    tail_launches = {"k5": ct.LAUNCHES, "k6": ct.CL_LAUNCHES}
+    print(f"[41] {TAIL_SIZE}^2 depth {TAIL_DEPTH} through the sweep tail: {tail_ms!r} ms, mean "
+          f"{float(img.mean())!r}; launches {tail_launches}")
+    check(bool(torch.isfinite(img).all()) and bool((img >= 0).all()), "the tail's image is finite")
+    check(tail_launches["k5"] > 0 and tail_launches["k6"] == 0, "the tail launched K5, not K6")
+    tail = tail_host.to("cuda")
+    ro, rd, _, _ = camera_rays(Camera.build(tail_cam, 1.0).to("cuda"), rng.key(0), TAIL_SIZE,
+                               TAIL_SIZE)
+    k5 = path_kernels(("k5",), tail, ro, rd, f"the tail's {TAIL_SIZE}^2 camera rays "
+                      f"({tail.n_triangles} triangles)", "41")["k5"]
+    before = ct.LAUNCHES
+    aimed_err, _ = compare_k5(ct, tail.triangles, *copies_rays(TILE, 41),
+                              f"{TILE} rays aimed down at the seven bunnies (seed 41)", "41")
+    ct.LAUNCHES = before
+    k5["err"] = max(k5["err"], aimed_err)
+
+    c4_host, c4_cam, _ = scenes.bunny()
+    brute_host = bare(c4_host, ("cl_", "sw_"))
+    check(mesh_strategy(brute_host) == "brute", "a table without sweep constants takes brute")
+    br = Renderer(RendererParam(BRUTE_SIZE, BRUTE_SIZE, max_depth=1), c4_cam, brute_host,
+                  device="cuda")
+    reset_counts()
+    a, brute_ms = elapsed_ms(lambda: br.render(0))
+    b = br.render(0)
+    brute_launches = {"k1": ci.LAUNCHES, "k5": ct.LAUNCHES, "k6": ct.CL_LAUNCHES}
+    print(f"[41] C4 {BRUTE_SIZE}^2 depth 1 through brute: {brute_ms!r} ms, mean "
+          f"{float(a.mean())!r}; launches {brute_launches}")
+    check(bool(torch.isfinite(a).all()) and torch.equal(a, b), "the brute render is finite and "
+          "repeats")
+    check(brute_launches["k5"] == brute_launches["k6"] == 0, "brute launched no sweep")
+    # one bounce more, lit by the sky: the same image as K5's but for
+    # Moeller-Trumbore's rounding of t
+    lit = RendererParam(BRUTE_SIZE, BRUTE_SIZE, max_depth=2)
+    lit_brute = Renderer(lit, c4_cam, brute_host, device="cuda").render(0)
+    lit_sweep = Renderer(lit, c4_cam, c4_host, device="cuda").render(0)
+    m_brute, m_sweep = float(lit_brute.double().mean()), float(lit_sweep.double().mean())
+    print(f"[41] depth 2: mean {m_brute!r} through brute, {m_sweep!r} through K5")
+    check(bool(torch.isfinite(lit_brute).all()) and m_sweep > 0
+          and abs(m_brute - m_sweep) <= 1e-3 * m_sweep, "brute's depth-2 image mean is K5's")
+    c4, brute = c4_host.to("cuda"), brute_host.to("cuda")
+    ro, rd, _, _ = camera_rays(Camera.build(c4_cam, 1.0).to("cuda"), rng.key(0), BRUTE_SIZE,
+                               BRUTE_SIZE)
+    got = intersect_scene(brute, ro, rd, EPSILON, float("inf"))
+    want = intersect_scene(c4, ro, rd, EPSILON, float("inf"))
+    tri = want.kind == KIND_TRIANGLE
+    diff = tri & (got.index != want.index)
+    rel = ((got.t - want.t).abs() / want.t)[tri]
+    tied = bool((rel[diff[tri]] <= 2 * BRUTE_RTOL).all())
+    print(f"[41] brute vs K5 on C4's {BRUTE_SIZE}^2 camera rays: kind mismatches "
+          f"{int((got.kind != want.kind).sum())}, {int(tri.sum())} on the mesh, max rel dt "
+          f"{float(rel.max())!r}, {int(diff.sum())} other triangles (all tied: {tied})")
+    check(torch.equal(got.kind, want.kind) and float(rel.max()) <= BRUTE_RTOL and tied,
+          "brute's winners equal K5's where t is not tied")
+    return {"k5": k5, "tail_launches": tail_launches, "profile": summary}
+
+
 def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
     """One kernel of the JSON kernel record."""
     return {"name": name, "route": "cuda", "source": f"ray_tracing_tpu_torch/csrc/{source}",
@@ -3336,6 +3611,24 @@ def path_entries(gallery_run, demo, walk, scale) -> list:
         scale["k2"]["kernel"][0], scale["k2"]["plain"][0], scale["k2"]["bound"],
         scale["k2"]["index_add_"][0]))
     return out
+
+
+def bench_entries(bench, tails) -> list:
+    """The kernel record's entries of phases 39 and 41: K1 and K2 with the
+    launches of the bench's run, K5 with those of the sweep tail's
+    render, each measured on its path's own tensors."""
+    k1, k2, k5 = bench["k1"], bench["k2"], tails["k5"]
+    return [
+        entry("phase_a (K1), bench_torch.py (zy 1024^2 depth 20 fwd+bwd)", "intersect.cu",
+              "ray_tracing_tpu/ops/pallas_intersect.py:116", bench["launches"]["k1"], k1["err"],
+              k1["ms"], k1["plain_ms"], k1["bound"]),
+        entry("scatter_add (K2), bench_torch.py (zy 1024^2 depth 20 fwd+bwd)", "scatter.cu",
+              "ray_tracing_tpu/ops/pallas_scatter.py:82", bench["launches"]["k2"],
+              bench["k2_err"], k2["kernel"][0], k2["plain"][0], k2["bound"], k2["index_add_"][0]),
+        entry("triangle_sweep (K5), the sweep tail above SWEEP_MAX_TRIS (34,776 triangles)",
+              "triangles.cu", "ray_tracing_tpu/ops/pallas_triangles.py:147",
+              tails["tail_launches"]["k5"], k5["err"], k5["ms"], k5["plain_ms"], k5["bound"]),
+    ]
 
 
 def main() -> int:
@@ -3491,6 +3784,9 @@ def main() -> int:
     demo = timed("phase 36 (motion-blur demo)", motion_demo_phase, smi)
     walk = timed("phase 37 (BVH walk)", bvh_phase, smi)
     scale = timed("phase 38 (weak-scaling harness, one NCCL rank)", scaling_phase, smi)
+    bench = timed("phase 39 (bench_torch.py at 1024^2 depth 20)", bench_phase, smi)
+    timed("phase 40 (perf ladder)", ladder_phase, smi)
+    tails = timed("phase 41 (pass profile, mesh tails)", profile_tails_phase, smi)
 
     # one K1 entry per zy path, each with the count of its own run
     intersect = "ray_tracing_tpu/ops/pallas_intersect.py:116"
@@ -3571,6 +3867,8 @@ def main() -> int:
     # this slice's paths: the gallery runner, the motion demo, the BVH
     # walk's passes and the weak-scaling harness (phases 35-38)
     record["kernels"] += path_entries(gallery_run, demo, walk, scale)
+    # this slice's paths: the headline bench and the sweep tail (phases 39, 41)
+    record["kernels"] += bench_entries(bench, tails)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

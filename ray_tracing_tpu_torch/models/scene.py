@@ -534,20 +534,14 @@ def scene_from_numpy(tree) -> SceneData:
     ``jax.tree.map(np.asarray, scene)``, or a port scene on the CPU.
 
     The cluster tables, the BVH, sphere velocities and the shutter come
-    across.  A mesh above ``SWEEP_MAX_TRIS`` triangles with neither
-    cluster tables nor a BVH would need the JAX package's XLA sweep over
-    the whole table, which is not ported: that raises
-    ``NotImplementedError``.
+    across; a table with sweep constants gets the CUDA sweeps' tables
+    (:func:`pack_sweep_kernel_tables`), whatever its size.  A mesh takes
+    the strategy the JAX package would pick for it
+    (ops/intersect.py:mesh_strategy).
     """
     from ray_tracing_tpu_torch.ops.bvh import BVHTable
-    from ray_tracing_tpu_torch.ops.intersect import SWEEP_MAX_TRIS
 
     bvh = tree.bvh
-    if int(tree.n_triangles) > SWEEP_MAX_TRIS and tree.triangles.cl_d0 is None and bvh is None:
-        raise NotImplementedError(
-            f"a mesh above {SWEEP_MAX_TRIS} triangles with neither cluster tables nor a BVH "
-            "needs the XLA sweep over the whole table, which is not ported yet, see ROADMAP"
-        )
     tt = tree.textures
     lt = tree.lights
     md = tree.media

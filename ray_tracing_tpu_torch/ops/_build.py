@@ -33,10 +33,11 @@ _LOCKS: dict = {}  # library path -> the lock its builders take
 _LOCKS_GUARD = threading.Lock()
 
 
-def build_key(source: Path, flags=NVCC_FLAGS) -> str:
-    """Hash of a source's bytes and the compiler flags."""
+def build_key(source: Path, flags=None) -> str:
+    """Hash of a source's bytes and the compiler flags (``NVCC_FLAGS`` as
+    it stands when called, by default)."""
     return hashlib.sha256(
-        Path(source).read_bytes() + " ".join(flags).encode()
+        Path(source).read_bytes() + " ".join(NVCC_FLAGS if flags is None else flags).encode()
     ).hexdigest()[:16]
 
 

@@ -180,8 +180,11 @@ def _launch(entry: str, what: str, tri, aabb, origin, ro, rd, t_min, t_max, stat
 
 def triangle_sweep_cuda(tri, aabb, origin, ro, rd, t_min: float, t_max: float, stats=None):
     """K5 on CUDA tensors: ``tri`` the (T, 16) table of
-    :func:`pack_triangle_table` (T <= intersect.SWEEP_MAX_TRIS), ``aabb``
-    its (Kc, 6) cluster boxes (:func:`pack_cluster_aabbs`).  The same
+    :func:`pack_triangle_table`, any T (K5 and K6 share one traversal of
+    any number of clusters; the renderer takes K5 up to
+    intersect.SWEEP_MAX_TRIS and above it for a table with neither
+    cluster tables nor a BVH), ``aabb`` its (Kc, 6) cluster boxes
+    (:func:`pack_cluster_aabbs`).  The same
     outputs as :func:`triangle_sweep_plain`, which has no cull.
     ``stats``, an int32 tensor of three zeros on the card, takes the
     clusters the warps listed, the (warp, cluster) sweeps and the (ray,

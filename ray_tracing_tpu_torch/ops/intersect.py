@@ -11,8 +11,10 @@ Two phases:
   (ops/cuda_intersect.py); then triangles, through the dense sweep K5
   or, for a mesh above ``SWEEP_MAX_TRIS`` triangles, the cluster sweep
   K6 (ops/cuda_triangles.py), or for a scene with a BVH and neither,
-  the BVH walk in plain PyTorch (ops/bvh.py); then constant media, in
-  plain PyTorch.
+  the BVH walk in plain PyTorch (ops/bvh.py), or for a table with
+  neither, K5 over the whole table, or for one without sweep constants
+  the brute-force Moeller-Trumbore grid in plain PyTorch; then
+  constant media, in plain PyTorch.
   This is the TPU's order; on the CPU the plain versions run in the
   same order.  A later kind wins only with a strictly smaller t.
 * **Phase B** gathers the one winning primitive per ray and re-runs
@@ -49,6 +51,9 @@ KIND_MEDIUM = 3  # index = medium id
 # Meshes up to this many triangles take the dense sweep (K5); larger ones
 # take the two-level cluster sweep (K6).
 SWEEP_MAX_TRIS = 32768
+# (rays x triangles) entries of one candidate grid of the brute-force
+# sweep: the table goes in chunks of BRUTE_GRID // rays triangles
+BRUTE_GRID = 1 << 22
 
 
 @dataclasses.dataclass
@@ -138,11 +143,11 @@ def mesh_strategy(scene: SceneData) -> str:
     "none" without triangles, "sweep" (the dense sweep, K5) for a table
     with sweep constants of at most ``SWEEP_MAX_TRIS`` triangles,
     "cluster" (the cluster sweep, K6) for a table with cluster tables,
-    "bvh" (the skip-link walk, ops/bvh.py) for a scene with a BVH.  The
-    JAX package's two remaining tails are not ported and raise: its XLA
-    sweep over a table above ``SWEEP_MAX_TRIS`` with neither clusters nor
-    BVH, and its brute-force grid over a table without sweep constants.
-    Neither is reached by a compiled scene."""
+    "bvh" (the skip-link walk, ops/bvh.py) for a scene with a BVH, then
+    "sweep" again (K5 over the whole table, which takes any number of
+    clusters) for a larger table with sweep constants and neither, and
+    "brute" (:func:`_triangle_brute_phase_a`, plain PyTorch) for a table
+    without sweep constants."""
     if scene.n_triangles == 0:
         return "none"
     tr = scene.triangles
@@ -152,14 +157,34 @@ def mesh_strategy(scene: SceneData) -> str:
         return "cluster"
     if scene.bvh is not None:
         return "bvh"
-    if tr.has_sweep:
-        raise NotImplementedError(
-            f"a mesh of {scene.n_triangles} triangles (above SWEEP_MAX_TRIS = {SWEEP_MAX_TRIS}) "
-            "with neither cluster tables nor a BVH needs the JAX package's XLA sweep over the "
-            "whole table, which is not ported yet, see ROADMAP")
-    raise NotImplementedError(
-        f"a mesh of {scene.n_triangles} triangles without sweep constants, cluster tables or "
-        "a BVH needs the JAX package's brute-force grid, which is not ported yet, see ROADMAP")
+    return "sweep" if tr.has_sweep else "brute"
+
+
+def _triangle_brute_phase_a(tr, ro, rd, t_min: float, t_max: float):
+    """Nearest triangle per ray by Moeller-Trumbore against every
+    triangle (the JAX package's broadcast grid, ``intersect.py:
+    _triangle_phase_a``, in plain PyTorch on either device): (t (N,) f32,
+    idx (N,) i32, found (N,) bool), the least t, then the lowest index.
+    The table goes in ascending chunks that bound each grid to
+    ``BRUTE_GRID`` entries; a chunk's winner replaces the running one
+    only with a strictly smaller t, as one argmin over the whole table
+    would pick."""
+    n = ro.shape[0]
+    chunk = max(1, BRUTE_GRID // max(n, 1))
+    best_t = torch.full((n,), INF, dtype=torch.float32, device=ro.device)
+    best_idx = torch.zeros((n,), dtype=torch.int32, device=ro.device)
+    ro_n, rd_n = ro[:, None, :], rd[:, None, :]
+    for start in range(0, tr.v0.shape[0], chunk):
+        rows = slice(start, start + chunk)
+        t, mask, _, _, _ = geo.triangle_t(ro_n, rd_n, tr.v0[rows], tr.e12[rows], tr.e13[rows],
+                                          t_min, t_max)
+        t = torch.where(mask, t, INF)
+        idx = torch.argmin(t, dim=1)
+        t = torch.gather(t, 1, idx[:, None])[:, 0]
+        better = t < best_t
+        best_t = torch.where(better, t, best_t)
+        best_idx = torch.where(better, (idx + start).to(torch.int32), best_idx)
+    return best_t, best_idx, best_t < INF
 
 
 def _boundary_nearest(bd, ro, rd, t_lo, t_hi):
@@ -266,6 +291,8 @@ def intersect_scene(scene: SceneData, ro, rd, t_min: float, t_max: float, med_u=
     elif strategy == "bvh":
         consider_per_ray(*bvh.bvh_traverse_triangles(scene.bvh, ro_d, rd_d, t_min, t_max),
                          KIND_TRIANGLE)
+    elif strategy == "brute":
+        consider_per_ray(*_triangle_brute_phase_a(tr, ro_d, rd_d, t_min, t_max), KIND_TRIANGLE)
     if scene.n_medium:
         t, mask = _medium_phase_a(scene, ro, rd, t_min, t_max, med_u)
         t = torch.where(mask, t, INF)

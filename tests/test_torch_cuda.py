@@ -1,9 +1,11 @@
 """Tests of the port that need an NVIDIA GPU: K1 to K6 against their
 plain versions on the card (K1, K3 and K4 also on tables past 48 KB and
-past what shared memory holds; K2 bit for bit against its plain version
-run on the CPU, and repeatable), and the render and gradient paths on the
-card.  They skip without a GPU.  The file imports no JAX, so on a machine with a GPU
-and without JAX it runs on its own:
+past what shared memory holds; K5 over a table above 32,768 triangles
+without clusters, and the brute-force grid against K5; K2 bit for bit
+against its plain version run on the CPU, and repeatable), and the
+render and gradient paths on the card.  They skip without a GPU.  The
+file imports no JAX, so on a machine with a GPU and without JAX it runs
+on its own:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -633,3 +635,63 @@ def test_motion_render_on_card(cuda, motion):
     """The motion scene: K4 launched, K1 not."""
     scene, cam, _ = motion
     _scene_render_on_card(cuda, scene, cam, lambda: (ci.MOTION_LAUNCHES, ci.LAUNCHES), 0, 1)
+
+
+def _without(scene, prefixes):
+    """``scene`` with the triangle-table fields named by ``prefixes`` dropped."""
+    import dataclasses
+
+    tr = scene.triangles
+    return dataclasses.replace(scene, triangles=dataclasses.replace(tr, **{
+        f.name: None for f in dataclasses.fields(tr) if f.name.startswith(prefixes)}))
+
+
+def test_sweep_tail_runs_k5_over_the_whole_table(cuda):
+    """Seven bunnies (34,776 triangles, above SWEEP_MAX_TRIS) without
+    cluster tables take "sweep": K5 over the whole table, equal to the
+    dense plain version (found and idx equal, t bit-equal), and a render
+    launches K5 and not K6."""
+    from ray_tracing_tpu_torch.ops.intersect import mesh_strategy
+
+    tail = _without(scenes.bunny_copies(7), ("cl_",))
+    assert mesh_strategy(tail) == "sweep"
+    tr = tail.to(cuda).triangles
+    r = np.random.RandomState(12)
+    ro = r.uniform([-0.9, 0.6, -0.9], [0.9, 0.8, 0.9], (20000, 3))
+    rd = r.uniform([-0.9, 0.0, -0.9], [0.9, 0.15, 0.9], (20000, 3)) - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    ro, rd = (torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (ro, rd))
+    t, idx, found = ct.triangle_sweep_cuda(tr.sw_table, tr.sw_aabb, tr.sw_origin, ro, rd, 1e-3,
+                                           float("inf"))
+    pt, pidx, pfound = ct.triangle_sweep_plain(tr.sw_table, tr.sw_origin, ro, rd, 1e-3,
+                                               float("inf"))
+    assert float(found.float().mean()) > 0.01
+    assert torch.equal(found, pfound) and torch.equal(idx[found], pidx[found])
+    assert torch.equal(t[found], pt[found])
+    cam = prt.CameraParam(look_from=(0.0, 0.55, 0.9), look_at=(0.0, 0.08, -0.6), vfov=60)
+    k5, k6 = ct.LAUNCHES, ct.CL_LAUNCHES
+    img = prt.Renderer(prt.RendererParam(64, 64, max_depth=3), cam, tail, device="cuda").render(0)
+    assert bool(torch.isfinite(img).all())
+    assert ct.LAUNCHES > k5 and ct.CL_LAUNCHES == k6
+
+
+def test_brute_tail_matches_k5_on_card(cuda):
+    """C4's bunny without sweep constants takes "brute" (plain PyTorch on
+    the card): its winners equal K5's on the full table (kind equal, t to
+    rtol 1e-5, the triangle equal where t is not tied), no sweep
+    launched."""
+    from ray_tracing_tpu_torch.ops.intersect import KIND_TRIANGLE, intersect_scene, mesh_strategy
+
+    scene, cam, _ = scenes.bunny()
+    brute = _without(scene, ("cl_", "sw_"))
+    assert mesh_strategy(brute) == "brute"
+    ro, rd, _, _ = camera_rays(Camera.build(cam, 1.0).to(cuda), rng.key(0), 64, 64)
+    k5, k6 = ct.LAUNCHES, ct.CL_LAUNCHES
+    got = intersect_scene(brute.to(cuda), ro, rd, prt.EPSILON, float("inf"))
+    assert ct.LAUNCHES == k5 and ct.CL_LAUNCHES == k6
+    want = intersect_scene(scene.to(cuda), ro, rd, prt.EPSILON, float("inf"))
+    tri = want.kind == KIND_TRIANGLE
+    assert torch.equal(got.kind, want.kind) and bool(tri.any())
+    rel = (got.t - want.t).abs() / want.t
+    assert float(rel[tri].max()) <= 1e-5
+    assert bool((rel[tri & (got.index != want.index)] <= 2e-5).all())

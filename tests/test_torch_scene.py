@@ -78,9 +78,12 @@ def test_scene_from_numpy_round_trips(bundles):
 def test_scene_from_numpy_refuses_unported_jax_scene():
     """A JAX scene whose mesh is above SWEEP_MAX_TRIS without cluster
     tables bridges with its BVH and takes the walk ("bvh"); without a
-    BVH either it would need the JAX package's XLA sweep, which is not
-    ported: that is refused.  Moving spheres (K4) and cluster tables
-    (K6) bridge with their velocities and tables."""
+    BVH either it bridges with the CUDA sweeps' tables and takes K5 over
+    the whole table ("sweep"), as the JAX package takes its XLA sweep;
+    without sweep constants it takes the brute-force grid ("brute").
+    Moving spheres (K4) and cluster tables (K6) bridge with their
+    velocities and tables."""
+    from ray_tracing_tpu.ops.intersect import mesh_strategy as jmesh_strategy
     from ray_tracing_tpu_torch.ops.intersect import mesh_strategy
 
     b = jrt.SceneBuilder()
@@ -94,8 +97,15 @@ def test_scene_from_numpy_refuses_unported_jax_scene():
     bridged = prt.scene_from_numpy(jax.tree.map(np.asarray, scene))
     assert mesh_strategy(bridged) == "bvh"
     _assert_tables_equal(bridged.bvh, scene.bvh, "scene.bvh")
-    with pytest.raises(NotImplementedError, match="XLA sweep"):
-        prt.scene_from_numpy(jax.tree.map(np.asarray, scene.replace(bvh=None)))
+    scene = scene.replace(bvh=None)
+    bridged = prt.scene_from_numpy(jax.tree.map(np.asarray, scene))
+    assert mesh_strategy(bridged) == jmesh_strategy(scene) == "sweep"
+    tr = bridged.triangles
+    assert tr.sw_table.shape == (len(tr), 16) and tr.sw_aabb.shape == (-(-len(tr) // 128), 6)
+    scene = scene.replace(triangles=scene.triangles.replace(sw_n=None))
+    bridged = prt.scene_from_numpy(jax.tree.map(np.asarray, scene))
+    assert mesh_strategy(bridged) == jmesh_strategy(scene) == "brute"
+    assert bridged.triangles.sw_table is None
 
 
 def test_scene_to_device_keeps_tables(bundles):
@@ -180,7 +190,9 @@ def test_port_never_imports_jax_or_the_jax_package():
     sources = []
     for root, _, files in os.walk(PKG):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
-    sources += ["chip_smoke.py", "bench_scaling_torch.py"]
+    sources += ["chip_smoke.py", "bench_scaling_torch.py", "bench_torch.py",
+                "tools/perf/ladder_torch.py", "tools/perf/profile_pass_torch.py",
+                "tools/perf/profiler_probe_torch.py"]
     assert len(sources) > 10
     for src in sources:
         with open(src) as fh:

@@ -7,12 +7,14 @@ tests/test_torch_cuda.py and chip_smoke.py."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import ray_tracing_tpu as jrt
+import ray_tracing_tpu_torch as prt
 from ray_tracing_tpu.models.mesh import load_triangles as jload_triangles
 from ray_tracing_tpu.ops import geometry as jgeo
 from ray_tracing_tpu.ops import intersect as jintersect
@@ -173,9 +175,10 @@ def test_sweep_on_cpu_takes_the_plain_version(scenes):
 def test_mesh_strategy_is_the_sweep_or_refuses(scenes):
     """The dense sweep up to SWEEP_MAX_TRIS, the cluster sweep above it or
     without sweep constants, then the BVH walk, as the JAX package
-    chooses; a table with neither cluster tables nor a BVH that the sweep
-    cannot take needs the JAX package's XLA sweep or brute-force grid,
-    which are refused."""
+    chooses; a table with neither cluster tables nor a BVH takes K5 over
+    the whole table ("sweep") when it has sweep constants and the
+    brute-force grid ("brute") when it has none, as the JAX package's
+    XLA sweep and grid do, and both render."""
     ours, ref = scenes
     assert pintersect.mesh_strategy(ours) == "sweep"
     too_many = dataclasses.replace(ours, n_triangles=pintersect.SWEEP_MAX_TRIS + 1)
@@ -187,10 +190,88 @@ def test_mesh_strategy_is_the_sweep_or_refuses(scenes):
     unclustered = [dataclasses.replace(s, triangles=dataclasses.replace(s.triangles, cl_d0=None))
                    for s in (too_many, no_sweep)]
     tree = _bunny(SceneBuilder, load_triangles, bvh=True).bvh
-    for scene in unclustered:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            pintersect.mesh_strategy(scene)
+    for scene, tail in zip(unclustered, ("sweep", "brute")):
+        assert pintersect.mesh_strategy(scene) == tail
         assert pintersect.mesh_strategy(dataclasses.replace(scene, bvh=tree)) == "bvh"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pintersect.intersect_scene(unclustered[1], torch.zeros((4, 3)), torch.ones((4, 3)), 1e-3,
-                                   np.inf)
+    ro, rd = (torch.from_numpy(x) for x in _rays(64, 5))
+    want = pintersect.intersect_scene(ours, ro, rd, 1e-3, np.inf)
+    assert bool(want.mask.any())
+    for scene in unclustered:
+        got = pintersect.intersect_scene(scene, ro, rd, 1e-3, np.inf)
+        assert torch.equal(got.mask, want.mask) and torch.equal(got.index, want.index)
+        np.testing.assert_allclose(got.t[got.mask].numpy(), want.t[want.mask].numpy(), rtol=1e-5)
+
+
+def _bare(tris, prefixes):
+    """A JAX triangle table without the fields named by ``prefixes``."""
+    return tris.replace(**{f.name: None for f in dataclasses.fields(tris)
+                           if f.name.startswith(prefixes)})
+
+
+@pytest.fixture(scope="module")
+def tails(scenes):
+    """{tail: (JAX scene, the port's scene_from_numpy of it)}: "sweep",
+    seven offset bunnies (scenes.bunny_copies' layout, 34,776 triangles,
+    above SWEEP_MAX_TRIS) with their cluster tables and BVH dropped;
+    "brute", the bunny without sweep constants, cluster tables or BVH."""
+    pts, nrm, uvs = jload_triangles("data/bunny.obj")
+    b = jrt.SceneBuilder(background=(0.2, 0.2, 0.2))
+    white = b.add_lambertian(b.add_texture_solid((0.7, 0.7, 0.7)))
+    offs = [(0.3 * (i % 6) - 0.75, 0.3 * (i // 6) - 0.75) for i in range(7)]
+    b.add_mesh_triangles(np.concatenate([pts + np.asarray([dx, 0.0, dz], np.float32)
+                                         for dx, dz in offs]),
+                         np.concatenate([nrm] * 7), np.concatenate([uvs] * 7), white)
+    big = b.build()
+    big = big.replace(triangles=_bare(big.triangles, ("cl_",)), bvh=None)
+    _, bunny = scenes
+    bunny = bunny.replace(triangles=_bare(bunny.triangles, ("cl_", "sw_")), bvh=None)
+    return {tail: (s, prt.scene_from_numpy(jax.tree.map(np.asarray, s)))
+            for tail, s in (("sweep", big), ("brute", bunny))}
+
+
+def _tail_rays(scene, n, seed):
+    """Rays from in front of and above the mesh aimed at seeded points of
+    its box (numpy)."""
+    v0 = np.asarray(scene.triangles.v0)
+    lo, hi = v0.min(axis=0), v0.max(axis=0)
+    rng = np.random.RandomState(seed)
+    target = rng.uniform(lo, hi, (n, 3))
+    ro = (lo + hi) / 2 + [0.0, 0.4, 1.2] + rng.uniform(-0.3, 0.3, (n, 3))
+    rd = target - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    return ro.astype(np.float32), rd.astype(np.float32)
+
+
+@pytest.mark.parametrize("tail, rtol", [("sweep", 1e-6), ("brute", 1e-5)])
+def test_mesh_tails_match_jax(tails, tail, rtol):
+    """The two tails on tables bridged from the JAX package: the same
+    strategy as JAX's mesh_strategy, and phase A's winners equal to JAX's
+    intersect_scene (its XLA sweep or brute-force grid on the CPU): hit
+    or miss and kind equal, t to ``rtol`` (the sweep's formulas as
+    test_plain_sweep_matches_jax holds them, Moeller-Trumbore's as
+    test_triangle_t_matches_jax), the triangle equal on every ray whose
+    best t in JAX's candidate grid is not tied with another triangle's
+    within that slack."""
+    jscene, ours = tails[tail]
+    assert jintersect.mesh_strategy(jscene) == pintersect.mesh_strategy(ours) == tail
+    if tail == "sweep":
+        assert ours.n_triangles > pintersect.SWEEP_MAX_TRIS
+        assert ours.triangles.sw_table.shape == (ours.n_triangles, ct.TRI_COLS)
+    ro, rd = _tail_rays(jscene, 256, 6)
+    got = pintersect.intersect_scene(ours, torch.from_numpy(ro), torch.from_numpy(rd),
+                                     prt.EPSILON, np.inf)
+    want = jintersect.intersect_scene(jscene, jnp.asarray(ro), jnp.asarray(rd), jgeo.EPSILON,
+                                      jnp.inf)
+    found = got.mask.numpy()
+    assert 0.1 < found.mean() < 0.99, "rays must hit and miss the mesh for this to test"
+    np.testing.assert_array_equal(found, np.asarray(want.mask))
+    np.testing.assert_array_equal(got.kind.numpy(), np.asarray(want.kind))
+    np.testing.assert_allclose(got.t.numpy()[found], np.asarray(want.t)[found], rtol=rtol)
+    grid = (jintersect._triangle_sweep_phase_a if tail == "sweep"
+            else jintersect._triangle_phase_a)(jscene, jnp.asarray(ro), jnp.asarray(rd),
+                                               jgeo.EPSILON, jnp.inf)
+    t = np.sort(np.where(np.asarray(grid[1]), np.asarray(grid[0]), np.inf), axis=1)
+    with np.errstate(invalid="ignore"):  # inf - inf where a ray hits at most one triangle
+        clear = found & ~(t[:, 1] - t[:, 0] <= 2 * rtol * t[:, 0])
+    assert clear.mean() > 0.5 * found.mean(), (clear.mean(), found.mean())
+    np.testing.assert_array_equal(got.index.numpy()[clear], np.asarray(want.index)[clear])
