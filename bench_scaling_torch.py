@@ -9,11 +9,13 @@ same ray load, so that
 
 is the per-rank throughput retained.  For each k, k processes are
 started (``torch.multiprocessing``) and join one group through
-``parallel/distributed.py`` (``tcp://localhost:<free port>``): NCCL with
-one card per rank, or gloo on the CPU with ``--force-cpu``, where the
-ranks share the host's cores (the efficiency then measures the code
-path, not the interconnect).  Without ``--force-cpu`` and without a GPU
-the script exits 1; it never falls back.
+``parallel/distributed.py`` (``file_rendezvous`` under ``build/``):
+NCCL with each rank bound to its own card, or gloo on the CPU with
+``--force-cpu``, where the ranks share the host's cores (the efficiency
+then measures the code path, not the interconnect).  Without
+``--force-cpu`` and without a GPU the script exits 1; it never falls
+back.  The kernels are built once, in this process, before any rank
+starts; each rank prints its own count of builds (0: it only loaded).
 
 Each rank draws its own ``--rays-per-device`` zy camera rays from the
 key folded with its rank and traces them under the pass's one trace key
@@ -44,17 +46,10 @@ Run: python bench_scaling_torch.py [--devices 1,2] [--rays-per-device 16384]
 import argparse
 import json
 import os
-import socket
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _rays(camera, per: int, rank: int):
@@ -94,13 +89,14 @@ def _segments(scene, ro, rd, key, depth: int, ids_base: int, tile: int = 65536):
     return total
 
 
-def _rank(rank: int, k: int, port: int, args, cpu: bool, queue) -> None:
+def _rank(rank: int, k: int, init: str, args, cpu: bool, queue) -> None:
     """One rank of the k-rank run; rank 0 puts the JSON record on ``queue``."""
     import torch
     import torch.distributed as dist
 
     from ray_tracing_tpu_torch import load_scene_json
     from ray_tracing_tpu_torch.models.camera import Camera
+    from ray_tracing_tpu_torch.ops import _build
     from ray_tracing_tpu_torch.ops import cuda_intersect as ci
     from ray_tracing_tpu_torch.ops import cuda_scatter as cs
     from ray_tracing_tpu_torch.ops import rng
@@ -110,12 +106,9 @@ def _rank(rank: int, k: int, port: int, args, cpu: bool, queue) -> None:
     cores = os.cpu_count() or 1
     if cpu:
         torch.set_num_threads(max(1, cores // k))
-    distributed.initialize("gloo" if cpu else "nccl", init_method=f"tcp://localhost:{port}",
-                           world_size=k, rank=rank)
+    distributed.initialize("gloo" if cpu else "nccl", init_method=init, world_size=k, rank=rank)
     mesh = make_mesh("cpu" if cpu else "cuda")
     dev = mesh.device
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
 
     def sync():
         if dev.type == "cuda":
@@ -148,6 +141,9 @@ def _rank(rank: int, k: int, port: int, args, cpu: bool, queue) -> None:
     dt = time.perf_counter() - t0
     launches = {"k1": ci.LAUNCHES, "k2": cs.LAUNCHES}
     del outs
+    sys.stdout.write(f"rank {rank} of {k} on {dev}: {_build.COMPILES} kernel builds in this "
+                     f"rank; launches in the timed passes {launches}\n")  # one write a line
+    sys.stdout.flush()
 
     if rank == 0:
         rays_per_s = total_segments / dt
@@ -211,6 +207,8 @@ def main(argv=None) -> int:
     import torch
     import torch.multiprocessing as mp
 
+    from ray_tracing_tpu_torch.parallel.distributed import file_rendezvous
+
     cpu = args.force_cpu
     if cpu:
         n_avail = min(8, os.cpu_count() or 1)
@@ -227,11 +225,18 @@ def main(argv=None) -> int:
     if max(counts) > n_avail:
         raise SystemExit(f"--devices {args.devices}: only {n_avail} devices")
 
+    if not cpu:
+        from ray_tracing_tpu_torch.ops import _build
+        from ray_tracing_tpu_torch.ops import cuda_intersect as ci
+        from ray_tracing_tpu_torch.ops import cuda_scatter as cs
+
+        _build.build_all([ci.SOURCE, cs.SOURCE])  # the ranks only load
     ctx = mp.get_context("spawn")
     results = {}
     for k in counts:
         queue = ctx.SimpleQueue()
-        mp.spawn(_rank, args=(k, _free_port(), args, cpu, queue), nprocs=k, join=True)
+        with file_rendezvous(os.path.join(ROOT, "build")) as init:
+            mp.spawn(_rank, args=(k, init, args, cpu, queue), nprocs=k, join=True)
         rec = queue.get()
         results[k] = rec["per_device"]
         print(json.dumps(rec), flush=True)

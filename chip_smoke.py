@@ -264,7 +264,21 @@ Phases (any failure raises and exits non-zero):
      sweep constants takes "brute" (plain PyTorch): a BRUTE_SIZE^2
      depth-1 render finite and repeated torch.equal with no sweep
      launched, its depth-2 mean within 1e-3 of K5's, its phase-A winners
-     equal K5's (t to BRUTE_RTOL, the triangle equal but at ties).
+     equal K5's (t to BRUTE_RTOL, the triangle equal but at ties);
+ 42. multicard_torch.py as a subprocess: one NCCL rank on each card, up
+     to MULTICARD_RANKS, zy at 1024x1024 depth GRAD_DEPTH (the kernels
+     built here beforehand; every rank only loads them): the rank count
+     and backend printed; on rank 0 the sharded image torch.equal to
+     world 1's and its K1 launches summed over the ranks equal to world
+     1's, the direct step within the one-card bound of world 1's, its
+     traced segments and K2's calls summed over the ranks equal to world
+     1's, the autograd step equal to the direct step (color-linear leaves
+     bit for bit), the color-only and dense steps finite, moving the
+     colors and within the bound; no two ranks on one card; on every rank
+     K1 and K2 against their plain versions on its own first tile by
+     path_kernels, compare_k2 and time_k2 (t bit-equal; K2 bit-equal to
+     the CPU), timed there; launches of each rank's direct step, counted
+     from 0.
 Every kernel time comes with its bound (bound()): the larger of its
 operations over the float32 peak and its bytes over the memory rate,
 counted from this run's inputs (phase_a_bound: one object ray per ray
@@ -290,10 +304,11 @@ kernel of each gallery configuration with the launches of its run in
 phase 35, K4 with those of phase 36's demo, K1 with those of each of
 phase 37's passes through the BVH walk and K5 with those of its sweep
 pass, K1 and K2 with rank 0's launches in the harness's timed passes
-(phase 38), K1 and K2 with the launches of the bench's run (phase 39)
-and K5 with those of the sweep tail's render (phase 41); each of phases
-35-41's entries with the kernel held against its plain version and
-timed on that path's own rays), the card's name
+(phase 38), K1 and K2 with the launches of the bench's run (phase 39),
+K5 with those of the sweep tail's render (phase 41), and K1 and K2 of
+each rank of phase 42 with the launches of that rank's direct step;
+each of phases 35-42's entries with the kernel held against its plain
+version and timed on that path's own rays), the card's name
 and power limit, and a JSON device record.  Launch counts
 are read only around single-threaded runs (phase 33's two threads
 count approximately and are not recorded).
@@ -307,7 +322,6 @@ import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SIZE, DEPTH, TILE = 1024, 20, 65536  # zy at full size, as bench.py measures it
@@ -539,16 +553,17 @@ def compare_k2(cs, p: int, segments, what: str, tag: str = "6") -> float:
     return err
 
 
-def tile_segments(scene, ro, rd, k_trace, depth: int):
+def tile_segments(scene, ro, rd, k_trace, depth: int, ids_base: int = 0):
     """The rows ``(row, contrib, mask)`` of each stage of the tape sweep of
-    the first 65,536-ray tile of a fwd+bwd pass, with the image-mean
-    cotangent, and the length of the gradient table [gimg | gcol | gmet]
-    they go into: what K2 takes per tile."""
+    the first 65,536-ray tile of a fwd+bwd pass (its rays' ids from
+    ``ids_base``), with the image-mean cotangent, and the length of the
+    gradient table [gimg | gcol | gmet] they go into: what K2 takes per
+    tile."""
     import torch
     from ray_tracing_tpu_torch.render.prb import _grad_rows
     from ray_tracing_tpu_torch.render.prb_tape import sweep_segments, trace_taped
 
-    rad, _, tape = trace_taped(scene, ro[:TILE], rd[:TILE], k_trace, depth)
+    rad, _, tape = trace_taped(scene, ro[:TILE], rd[:TILE], k_trace, depth, ids_base=ids_base)
     g = torch.full_like(rad, 1.0 / (ro.shape[0] * 3))
     return sweep_segments(scene, tape, rad, g), sum(_grad_rows(scene))
 
@@ -2434,20 +2449,17 @@ def train_phases(smi: str, size: int = SIZE, depth: int = DEPTH, dev: str = "cud
           "scalar_rows=((), ()) holds fuzz and IR")
 
     # 29. the same step under a one-rank NCCL process group
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    rendezvous = os.path.join(ROOT, "build", f"nccl_init_{os.getpid()}")
     backend = "nccl" if dev == "cuda" else "gloo"
-    distributed.initialize(backend, init_method=f"file://{rendezvous}", world_size=1, rank=0)
-    try:
-        mesh = distributed.global_mesh(dev)
-        check(mesh.collective and mesh.world == 1, "a one-rank process group")
-        step_nccl = make_prb_train_step_all_direct(cam, scene, mesh=mesh, **kw)
-        (p_nccl, l_nccl), ms_nccl = elapsed_ms(lambda: step_nccl(fit, scene, key, target))
-        info = distributed.process_info()
-    finally:
-        torch.distributed.destroy_process_group()
-        if os.path.exists(rendezvous):
-            os.remove(rendezvous)
+    with distributed.file_rendezvous(os.path.join(ROOT, "build")) as init:
+        distributed.initialize(backend, init_method=init, world_size=1, rank=0)
+        try:
+            mesh = distributed.global_mesh(dev)
+            check(mesh.collective and mesh.world == 1, "a one-rank process group")
+            step_nccl = make_prb_train_step_all_direct(cam, scene, mesh=mesh, **kw)
+            (p_nccl, l_nccl), ms_nccl = elapsed_ms(lambda: step_nccl(fit, scene, key, target))
+            info = distributed.process_info()
+        finally:
+            torch.distributed.destroy_process_group()
     same = {f: bool(torch.equal(a, b)) for f, a, b in zip(AllParams._fields, p_nccl, first)}
     print(f"[29] {info}: one step in {ms_nccl!r} ms, loss {float(l_nccl)!r} (phase 28: "
           f"{float(loss1)!r}); parameters torch.equal to phase 28's first step per leaf {same}")
@@ -3566,6 +3578,64 @@ def profile_tails_phase(smi: str) -> dict:
     return {"k5": k5, "tail_launches": tail_launches, "profile": summary}
 
 
+MULTICARD_RANKS = 4  # phase 42's ranks at most: the cards of one host
+
+
+def multicard_phase(smi: str) -> dict:
+    """Phase 42 on the card(s): ``python3 multicard_torch.py --ranks K
+    --depth GRAD_DEPTH`` as a subprocess, K the cards present up to
+    MULTICARD_RANKS (one NCCL rank on the driver's one-card machine).
+    The script checks every step itself and exits non-zero on any
+    failure; here its record must hold K NCCL ranks, each of which
+    loaded the kernels without building them and launched K1 and K2 in
+    its direct step.  Returns the record: each rank's K1 and K2 with the
+    bound of its own tile, as the rank measured them."""
+    import torch
+
+    ranks = min(torch.cuda.device_count(), MULTICARD_RANKS)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "multicard_torch.py"), "--ranks",
+                          str(ranks), "--depth", str(GRAD_DEPTH)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = run.stdout.splitlines()
+    print("\n".join(f"[42] {line}" for line in lines[:-1]))
+    check(run.returncode == 0, f"multicard_torch.py exited {run.returncode}: "
+          f"{run.stderr[-3000:]}")
+    rec = json.loads(lines[-1])
+    print(f"[42] multicard_torch.py: {rec['ranks']} rank(s), backend {rec['backend']}, zy "
+          f"{rec['size']}^2 depth {rec['depth']}, {wall!r} s with the start; card: {smi}")
+    check(rec["ranks"] == ranks == len(rec["per_rank"]) and rec["backend"] == "nccl",
+          f"{ranks} NCCL rank(s), one record each")
+    for r in rec["per_rank"]:
+        check(r["compiles"] == 0, f"rank {r['rank']} only loaded the kernels")
+        check(r["launches"]["k1"] > 0 and r["launches"]["k2"] > 0,
+              f"rank {r['rank']}'s direct step launched K1 and K2")
+        print(f"[42] rank {r['rank']} ({r['card']}): launches {r['launches']}; K1 bound "
+              f"{r['k1']['bound']!r}, K2 bound {r['k2']['bound']!r}; step {r['step_ms']!r} ms, "
+              f"all_reduce {r['all_reduce_ms']!r} ms ({r['all_reduce_bytes']} B), all_gather "
+              f"{r['all_gather_ms']!r} ms ({r['all_gather_bytes']} B)")
+    return rec
+
+
+def multicard_entries(rec) -> list:
+    """The kernel record's entries of phase 42: K1 and K2 of each rank,
+    with the launches of that rank's direct step and the numbers it
+    measured on its own first tile."""
+    out = []
+    for r in rec["per_rank"]:
+        path = (f"multicard_torch.py rank {r['rank']} of {rec['ranks']} (zy {rec['size']}^2 "
+                f"depth {rec['depth']} direct step)")
+        k1, k2 = r["k1"], r["k2"]
+        out.append(entry(f"phase_a (K1), {path}", "intersect.cu",
+                         "ray_tracing_tpu/ops/pallas_intersect.py:116", r["launches"]["k1"],
+                         k1["err"], k1["ms"], k1["plain_ms"], k1["bound"]))
+        out.append(entry(f"scatter_add (K2), {path}", "scatter.cu",
+                         "ray_tracing_tpu/ops/pallas_scatter.py:82", r["launches"]["k2"],
+                         k2["err"], k2["ms"], k2["plain_ms"], k2["bound"], k2["library_ms"]))
+    return out
+
+
 def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
     """One kernel of the JSON kernel record."""
     return {"name": name, "route": "cuda", "source": f"ray_tracing_tpu_torch/csrc/{source}",
@@ -3657,8 +3727,7 @@ def main() -> int:
 
     # 1 and 14. build K1/K3/K4, K2 and K5/K6, one nvcc per source, in parallel
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        libs = list(pool.map(_build.build, [ci.SOURCE, cs.SOURCE, ct.SOURCE]))
+    libs = _build.build_all([ci.SOURCE, cs.SOURCE, ct.SOURCE])
     print(f"[1] built {', '.join(os.path.relpath(lib, ROOT) for lib in libs)} "
           f"in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
@@ -3787,6 +3856,8 @@ def main() -> int:
     bench = timed("phase 39 (bench_torch.py at 1024^2 depth 20)", bench_phase, smi)
     timed("phase 40 (perf ladder)", ladder_phase, smi)
     tails = timed("phase 41 (pass profile, mesh tails)", profile_tails_phase, smi)
+    multicard = timed("phase 42 (multicard_torch.py, one NCCL rank per card)", multicard_phase,
+                      smi)
 
     # one K1 entry per zy path, each with the count of its own run
     intersect = "ray_tracing_tpu/ops/pallas_intersect.py:116"
@@ -3869,6 +3940,8 @@ def main() -> int:
     record["kernels"] += path_entries(gallery_run, demo, walk, scale)
     # this slice's paths: the headline bench and the sweep tail (phases 39, 41)
     record["kernels"] += bench_entries(bench, tails)
+    # this slice's path: every rank of multicard_torch.py (phase 42)
+    record["kernels"] += multicard_entries(multicard)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

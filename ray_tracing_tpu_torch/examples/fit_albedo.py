@@ -5,12 +5,16 @@ by gradient descent through the path tracer, the port's counterpart of
 A Cornell box is rendered with its true colors under four known keys to
 make the targets; the colors restart at gray (the emitter stays pinned)
 and are fitted by dense reverse-mode autograd through the ray-sharded
-render pass (parallel/mesh.py: one rank here, or every rank of an
-initialised process group) with ``torch.optim.Adam``.  Each step
-replays one target's key, so the Monte-Carlo noise is common to the
-prediction and its target.
+render pass (parallel/mesh.py: one process, or every rank of the group
+that ``torch.distributed.run`` starts, each on its own card) with
+``torch.optim.Adam``.  Each step replays one target's key, so the
+Monte-Carlo noise is common to the prediction and its target.  Every
+rank holds the same fit; rank 0 alone prints and writes the checkpoint,
+and each printed step checks that every rank holds its loss and error.
 
 Run:  python -m ray_tracing_tpu_torch.examples.fit_albedo --device cpu --steps 60 --size 48
+      python -m torch.distributed.run --standalone --nproc-per-node 4 \
+          -m ray_tracing_tpu_torch.examples.fit_albedo     # four cards
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from ray_tracing_tpu_torch import CameraParam, SceneBuilder
 from ray_tracing_tpu_torch.examples import device_of
 from ray_tracing_tpu_torch.models.camera import Camera
 from ray_tracing_tpu_torch.ops import rng
+from ray_tracing_tpu_torch.parallel import distributed
 from ray_tracing_tpu_torch.parallel.mesh import all_reduce_sum, make_mesh, sharded_render_pass
 from ray_tracing_tpu_torch.render.prb import check_fit_init
 from ray_tracing_tpu_torch.utils.checkpoint import load_fit, save_fit
@@ -59,8 +64,36 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    mesh = make_mesh(device_of(args.device))
-    device = mesh.device  # this rank's card under a process group
+    device = device_of(args.device)
+    # a no-op without a launcher's variables; under torch.distributed.run
+    # each process joins the group on its own card (gloo on the CPU)
+    distributed.initialize("gloo" if device.type == "cpu" else "nccl")
+    try:
+        return fit(args, make_mesh(device))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _same_on_every_rank(mesh, values) -> None:
+    """Raises unless every rank holds the same ``values`` (the replicated
+    fit: one all_reduced gradient, the same Adam step everywhere)."""
+    if not mesh.collective:
+        return
+    mine = torch.tensor(values, dtype=torch.float64, device=mesh.device)
+    parts = [torch.empty_like(mine) for _ in range(mesh.world)]
+    torch.distributed.all_gather(parts, mine, group=mesh.group)
+    if not all(torch.equal(p, parts[0]) for p in parts):
+        raise RuntimeError(f"rank {mesh.rank}: the ranks' fits differ: "
+                           f"{[p.tolist() for p in parts]}")
+
+
+def fit(args, mesh):
+    """The fit on ``mesh``: every rank renders its shard of each pass;
+    rank 0 alone prints and writes the checkpoint."""
+    device = mesh.device
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
+    say(f"fit_albedo: {mesh.world} rank(s), rank 0 on {device}")
 
     w = h = args.size
     scene = cornell().to(device)
@@ -89,7 +122,7 @@ def main(argv=None):
         try:
             start_step, restored, _ = load_fit(args.checkpoint)
             colors = torch.as_tensor(restored, device=device)
-            print(f"resumed at step {start_step}")
+            say(f"resumed at step {start_step}")
         except FileNotFoundError:
             pass
     colors = colors.clone().requires_grad_(True)
@@ -110,13 +143,14 @@ def main(argv=None):
         if i % 10 == 0 or i == args.steps - 1:
             keep = torch.arange(true_colors.shape[0], device=device) != EMITTER
             err = float((colors.detach()[keep] - true_colors[keep]).abs().max())
-            print(f"step {i:4d} loss {float(loss.detach()):.6f} max|c-c*| {err:.4f}")
-            if args.checkpoint:
+            _same_on_every_rank(mesh, [float(loss.detach()), err])
+            say(f"step {i:4d} loss {float(loss.detach())!r} max|c-c*| {err!r}")
+            if args.checkpoint and mesh.rank == 0:
                 save_fit(args.checkpoint, step=i + 1, color_table=colors.detach().cpu().numpy())
 
     err = (colors.detach() - true_colors).abs().cpu().numpy()
     err[EMITTER] = 0.0  # pinned emitter
-    print("final per-texture error:", err.max(axis=1).round(3))
+    say("final per-texture error:", err.max(axis=1).tolist())
     return float(err.max())
 
 

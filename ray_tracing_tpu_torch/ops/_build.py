@@ -18,6 +18,7 @@ import hashlib
 import os
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -74,6 +75,15 @@ def build(source: Path) -> Path:
         os.replace(tmp, lib)
         COMPILES += 1
     return lib
+
+
+def build_all(sources) -> list:
+    """Compile several sources at once, one ``nvcc`` for each (build());
+    returns their library paths.  A launcher of several processes calls
+    this before it starts them, so that they only load."""
+    sources = list(sources)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        return list(pool.map(build, sources))
 
 
 def on_device(device: torch.device):

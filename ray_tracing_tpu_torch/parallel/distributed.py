@@ -18,27 +18,37 @@ the world size and the rank are given, or come from the standard
 
 from __future__ import annotations
 
+import contextlib
 import os
+import tempfile
 
 import torch
 import torch.distributed as dist
 
-from ray_tracing_tpu_torch.parallel.mesh import Mesh, make_mesh
+from ray_tracing_tpu_torch.parallel.mesh import Mesh, local_card, make_mesh
 
 
 def initialize(backend: str | None = None, init_method: str | None = None,
                world_size: int | None = None, rank: int | None = None) -> None:
     """Join the process group.
 
-    With no arguments and neither ``MASTER_ADDR`` nor ``WORLD_SIZE`` in
-    the environment there is no group to join: a single process, and
-    this is a no-op.  Otherwise ``torch.distributed.init_process_group``
+    With neither ``init_method``, ``world_size`` nor ``rank`` given and
+    neither ``MASTER_ADDR`` nor ``WORLD_SIZE`` in the environment there
+    is no group to join: a single process, and this is a no-op (whatever
+    ``backend`` says).  Otherwise ``torch.distributed.init_process_group``
     runs with ``backend`` (default ``nccl`` where a card is visible,
     ``gloo`` on the CPU) and its error, if any, propagates: a configured
-    group that fails is never turned into a single process."""
+    group that fails is never turned into a single process.
+
+    An NCCL rank is bound to its own card first, made current and named
+    as the group's ``device_id``, so its communicator, its barriers and
+    the kernels' own ``cudaGetDevice`` all see that card.  A ``rank``
+    given here is one of the ranks a launcher spawned on this host, and
+    its card is the rank, whatever ``LOCAL_RANK`` it inherited; without
+    one, the card is mesh.local_card's (``LOCAL_RANK``, else ``RANK``)."""
     if dist.is_initialized():
         return
-    configured = any(x is not None for x in (backend, init_method, world_size, rank))
+    configured = any(x is not None for x in (init_method, world_size, rank))
     if not configured and not ("MASTER_ADDR" in os.environ or "WORLD_SIZE" in os.environ):
         return
     if backend is None:
@@ -48,7 +58,28 @@ def initialize(backend: str | None = None, init_method: str | None = None,
         kwargs["world_size"] = world_size
     if rank is not None:
         kwargs["rank"] = rank
+    if backend == "nccl":
+        card = torch.device("cuda", local_card(int(os.environ.get("RANK", 0))) if rank is None
+                            else local_card(rank, local=rank))
+        torch.cuda.set_device(card)
+        kwargs["device_id"] = card
     dist.init_process_group(backend, init_method=init_method, **kwargs)
+
+
+@contextlib.contextmanager
+def file_rendezvous(directory: str):
+    """A fresh ``file://`` init_method in ``directory`` for the ranks that
+    this process starts on its host (no TCP port to race for); the file
+    is removed once the block ends."""
+    os.makedirs(directory, exist_ok=True)
+    fd, path = tempfile.mkstemp(prefix="rendezvous_", dir=directory)
+    os.close(fd)
+    os.remove(path)  # the ranks' store creates it
+    try:
+        yield f"file://{path}"
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
 
 
 def global_mesh(device="cuda") -> Mesh:

@@ -8,9 +8,9 @@ row``, so an image does not depend on the world size (sharding is an
 execution strategy, like tiling or compaction).  The ray axis is padded
 to a multiple of ``world * 8`` with rays at the origin looking along +z,
 cropped from images and weighted 0 in losses.  The only communication
-is explicit: an ``all_gather`` of the image rows, and one ``all_reduce``
-of the loss and the gradients, the counterpart of the JAX package's
-``psum``.
+is explicit: an ``all_gather`` of the image rows, and an ``all_reduce``
+of the gradients in one flat buffer (and one of the loss), the
+counterpart of the JAX package's ``psum``.
 
 Without an initialised process group (parallel/distributed.py) a mesh
 is one process of world size 1 and nothing is communicated.
@@ -19,6 +19,7 @@ is one process of world size 1 and nothing is communicated.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 import torch.distributed as dist
@@ -54,11 +55,28 @@ class Mesh:
         return slice(self.rank * per, (self.rank + 1) * per)
 
 
+def local_card(rank: int, local: int | None = None) -> int:
+    """The index of rank ``rank``'s own card on this host: ``local`` where
+    the caller knows it, else the launcher's ``LOCAL_RANK`` where one sets
+    it (torch.distributed.run), else the rank.  Raises where no card has
+    that index, so no two ranks share a card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    if local is None:
+        local = int(os.environ.get("LOCAL_RANK", rank))
+    count = torch.cuda.device_count()
+    if not 0 <= local < count:
+        raise RuntimeError(f"rank {rank} (local rank {local}) has no card of its own: "
+                           f"{count} visible")
+    return local
+
+
 def make_mesh(device="cuda", group=None) -> Mesh:
     """The mesh of the initialised process group (``group`` or the
     default one), or a single process when none is initialised.  Ranks
-    on ``cuda`` take the card ``rank % device_count`` unless ``device``
-    names one."""
+    on ``cuda`` take the card their group was bound to
+    (distributed.initialize), else their own (:func:`local_card`),
+    unless ``device`` names one."""
     collective = dist.is_available() and dist.is_initialized()
     if collective:
         rank, world = dist.get_rank(group), dist.get_world_size(group)
@@ -68,10 +86,8 @@ def make_mesh(device="cuda", group=None) -> Mesh:
         rank, world = 0, 1
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("make_mesh: no CUDA device is available; pass device='cpu' "
-                               "to run on the CPU")
-        device = torch.device("cuda", rank % torch.cuda.device_count())
+        bound = getattr(group or dist.group.WORLD, "bound_device_id", None) if collective else None
+        device = bound if bound is not None else torch.device("cuda", local_card(rank))
     return Mesh(group, rank, world, device, collective)
 
 
@@ -231,7 +247,7 @@ def make_prb_train_step_all_direct(camera: Camera, template_scene: SceneData, *,
     """Full-parameter data-parallel SGD step on the direct backward: each
     rank runs :func:`tiled_loss_and_grad` over its shard with the masked
     L2 loss ``sum(w (rad - target)^2) / (3 n)`` (padded rays weight 0),
-    then one all_reduce sums the loss and the gradients.
+    then one all_reduce sums the gradients and another the loss.
     ``template_scene``'s material types fix the fuzz / IR rows once.
     Returns ``step(params, scene, key, target) -> (params', loss)``."""
     n = width * height
@@ -253,7 +269,11 @@ def make_prb_train_step_all_direct(camera: Camera, template_scene: SceneData, *,
             tile_loss, params, scene, ro_s, rd_s, k_trace, max_depth, ids_base=rows.start,
             compaction=compaction, use_tape=use_tape, scalar_rows=scalar_rows,
         )
-        loss, *grads = all_reduce_sum(mesh, [loss, *grads])
+        # the gradients alone in one buffer, as make_prb_train_step_all
+        # reduces them: the same element offsets give the same order of
+        # the ranks' sums, so the two steps' color-linear leaves stay equal
+        grads = all_reduce_sum(mesh, grads)
+        (loss,) = all_reduce_sum(mesh, [loss])
         return _sgd(params, grads, lr), loss
 
     return step

@@ -2,8 +2,9 @@
 plain versions on the card (K1, K3 and K4 also on tables past 48 KB and
 past what shared memory holds; K5 over a table above 32,768 triangles
 without clusters, and the brute-force grid against K5; K2 bit for bit
-against its plain version run on the CPU, and repeatable), and the
-render and gradient paths on the card.  They skip without a GPU.  The
+against its plain version run on the CPU, and repeatable), the
+render and gradient paths on the card, and multicard_torch.py with one
+NCCL rank on each card present.  They skip without a GPU.  The
 file imports no JAX, so on a machine with a GPU and without JAX it runs
 on its own:
 
@@ -695,3 +696,25 @@ def test_brute_tail_matches_k5_on_card(cuda):
     rel = (got.t - want.t).abs() / want.t
     assert float(rel[tri].max()) <= 1e-5
     assert bool((rel[tri & (got.index != want.index)] <= 2e-5).all())
+
+
+def test_multicard_on_every_card(cuda):
+    """multicard_torch.py with one NCCL rank on each card present (zy at
+    256^2, depth 2): exit 0 (every rank's own checks held), one record
+    per rank, each rank loaded the kernels without building them and its
+    direct step launched K1 and K2."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "multicard_torch.py", "--size", "256", "--depth", "2"],
+                         cwd=root, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    rec = json.loads(run.stdout.splitlines()[-1])
+    assert rec["ranks"] == torch.cuda.device_count() and rec["backend"] == "nccl"
+    for r in rec["per_rank"]:
+        assert r["device"] == f"cuda:{r['rank']}" and r["compiles"] == 0
+        assert r["launches"]["k1"] > 0 and r["launches"]["k2"] > 0
+        assert r["k1"]["err"] == 0.0 and r["k2"]["err"] == 0.0

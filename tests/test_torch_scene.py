@@ -190,7 +190,7 @@ def test_port_never_imports_jax_or_the_jax_package():
     sources = []
     for root, _, files in os.walk(PKG):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
-    sources += ["chip_smoke.py", "bench_scaling_torch.py", "bench_torch.py",
+    sources += ["chip_smoke.py", "bench_scaling_torch.py", "bench_torch.py", "multicard_torch.py",
                 "tools/perf/ladder_torch.py", "tools/perf/profile_pass_torch.py",
                 "tools/perf/profiler_probe_torch.py"]
     assert len(sources) > 10
