@@ -1,0 +1,18 @@
+"""Host ms inside the ``rtt.sync.<site>`` spans of the profiled train
+step: how long the host waited on the device in its blocking reads.
+
+Host time under the profiler, which about doubles a wall: compare it
+with the same reading of another run, not with step_ms.  Nothing to
+read from a program without spans.  Moves step_ms."""
+
+UNIT = "ms"
+SPAN = "rtt.sync."
+
+
+def read(ctx):
+    if ctx.loop != "train" or ctx.trace is None:
+        return None
+    from harness.spans import wall_s
+
+    s = wall_s(ctx.trace, SPAN)
+    return None if s is None else s * 1e3

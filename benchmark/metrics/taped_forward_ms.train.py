@@ -1,0 +1,19 @@
+"""Host ms inside ``rtt.taped_forward`` in the profiled train step: the
+taped compacted forward of every tile (render/prb_tape.py:trace_taped),
+the union of its spans.
+
+Host time under the profiler, which about doubles a wall: compare it
+with the same reading of another run, not with step_ms.  Nothing to
+read from a program without spans.  Moves step_ms."""
+
+UNIT = "ms"
+SPAN = "rtt.taped_forward"
+
+
+def read(ctx):
+    if ctx.loop != "train" or ctx.trace is None:
+        return None
+    from harness.spans import wall_s
+
+    s = wall_s(ctx.trace, SPAN)
+    return None if s is None else s * 1e3

@@ -18,6 +18,7 @@ from ray_tracing_tpu_torch.models.scene import (
     TextureTable,
 )
 from ray_tracing_tpu_torch.ops.rng import M32, mul32
+from ray_tracing_tpu_torch.utils.profiling import sync
 
 
 def _lattice_hash(i, j, k):
@@ -120,12 +121,14 @@ def texture_value(tt: TextureTable, idx, uv, p, *, with_leaf: bool = False):
     out = tt.color[idx]  # TEX_SOLID (reference solid_color.rs:21-28)
 
     if tt.images.shape[0] > 0:
-        sel = torch.nonzero(ttype == TEX_IMAGE).squeeze(1)
+        with sync("textures.image_sel"):
+            sel = torch.nonzero(ttype == TEX_IMAGE).squeeze(1)
         if sel.numel():
             out[sel] = image_value(tt, tt.image[idx[sel]], uv[sel])
 
     if tt.max_noise_depth > 0:
-        sel = torch.nonzero(ttype == TEX_NOISE).squeeze(1)
+        with sync("textures.noise_sel"):
+            sel = torch.nonzero(ttype == TEX_NOISE).squeeze(1)
         if sel.numel():
             leaf = idx[sel]
             turb = perlin_turb(

@@ -23,6 +23,7 @@ from ray_tracing_tpu_torch.ops.geometry import EPSILON, INF
 from ray_tracing_tpu_torch.ops.intersect import intersect_scene
 from ray_tracing_tpu_torch.ops.materials import N_SCATTER_U, shade
 from ray_tracing_tpu_torch.ops.rng import ray_time, ray_uniforms
+from ray_tracing_tpu_torch.utils.profiling import span, sync
 
 STAGE_BOUNCES = 4  # bounces per lead compaction stage
 
@@ -61,15 +62,18 @@ def _bounce(scene: SceneData, key, bounce: int, carry, count_segments: bool = Tr
     u = ray_uniforms(key, ids, bounce, N_SCATTER_U + scene.n_medium)
     med_u = u[:, N_SCATTER_U:] if scene.n_medium else None
     u = u[:, :N_SCATTER_U]
-    hit = intersect_scene(scene, ro, rd, EPSILON, INF, med_u, _shutter_times(scene, key, ids))
+    with span("rtt.intersect"):
+        hit = intersect_scene(scene, ro, rd, EPSILON, INF, med_u,
+                              _shutter_times(scene, key, ids))
     found = alive & hit.mask
     miss = alive & ~hit.mask
 
     rad = rad + torch.where(miss[:, None], thr * scene.background[None, :], 0.0)
-    if tape is None:
-        em, sc = shade(scene, hit, rd, u)
-    else:
-        em, sc, aux = shade(scene, hit, rd, u, with_aux=True)
+    with span("rtt.shade"):
+        if tape is None:
+            em, sc = shade(scene, hit, rd, u)
+        else:
+            em, sc, aux = shade(scene, hit, rd, u, with_aux=True)
     rad = rad + torch.where(found[:, None], thr * em, 0.0)
     new_alive = found & sc.scattered
     if tape is not None:
@@ -151,7 +155,9 @@ def bounded_bounce_loop(bounces: int, body, carry, alive_of):
     """``body(b, carry)`` for b in range(bounces), stopping once every
     lane is dead (a bounce over an all-dead wavefront is a no-op)."""
     for b in range(bounces):
-        if not bool(alive_of(carry).any()):
+        with sync("integrator.alive_any"):
+            any_alive = bool(alive_of(carry).any())
+        if not any_alive:
             break
         carry = body(b, carry)
     return carry
@@ -199,10 +205,12 @@ def trace_stages(scene: SceneData, key, max_depth: int, carry, *, count_segments
                 carry = body(b, carry)
         else:
             rad, thr, ro, rd, alive, ids, segments = carry
-            alive, (rad, thr, ro, rd), (ids, pos) = compact_wavefront(
-                alive, [rad, thr, ro, rd], [ids, pos]
-            )
-            live = int(alive.sum())
+            with span("rtt.compact"):
+                alive, (rad, thr, ro, rd), (ids, pos) = compact_wavefront(
+                    alive, [rad, thr, ro, rd], [ids, pos]
+                )
+                with sync("integrator.live_count"):
+                    live = int(alive.sum())
             if tape is not None:
                 tape.start_stage(pos, live)
             carry = run_stage(body, bounces, (rad, thr, ro, rd, alive, ids, segments), live)

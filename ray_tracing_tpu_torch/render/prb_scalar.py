@@ -38,6 +38,7 @@ from ray_tracing_tpu_torch.models.scene import MAT_DIELECTRIC, MAT_METAL, SceneD
 from ray_tracing_tpu_torch.render.integrator import trace, trace_compacted, trace_subset_dot
 from ray_tracing_tpu_torch.render.prb import TILE_SIZE, prb_grad_dense
 from ray_tracing_tpu_torch.render.prb_tape import tape_sweep, trace_taped
+from ray_tracing_tpu_torch.utils.profiling import span, sync
 
 
 class ScalarParams(NamedTuple):
@@ -100,7 +101,8 @@ def _tangent_batches(scene_of, theta0, mask, ro, rd, key, max_depth: int, g, *,
     the mask have an exactly-zero derivative and are never traced."""
     n = ro.shape[0]
     cap = min(n, tangent_cap or max(256, n // 8))
-    touched = torch.nonzero(mask).squeeze(1)
+    with sync("prb_scalar.touched"):
+        touched = torch.nonzero(mask).squeeze(1)
     rog = torch.cat([ro, rd, g], dim=1)  # one gather per batch
     gtheta = torch.zeros_like(theta0)
     eye = torch.eye(theta0.shape[0], dtype=theta0.dtype, device=theta0.device)
@@ -134,23 +136,26 @@ def _scalar_tangent_pass(p: AllParams, sc: SceneData, ro, rd, key, max_depth: in
     subset only.  ``touched`` is the tape's bitmask (1: the path reached
     a metal, 2: a dielectric); each family batches over its own rays.
     Returns (gfuzz (M,), gir (M,))."""
-    gfuzz = torch.zeros_like(p.fuzz)
-    gir = torch.zeros_like(p.ir)
-    common = dict(tangent_cap=tangent_cap, ids_base=ids_base, compaction=compaction)
-    fuzz_rows_j, ir_rows_j = _active_rows(sc, scalar_rows)
-    for name, rows_j, bit, grad in (("fuzz", fuzz_rows_j, 1, gfuzz), ("ir", ir_rows_j, 2, gir)):
-        if not len(rows_j):
-            continue
-        base = getattr(p, name).detach()
-        rows = torch.as_tensor(rows_j, device=base.device)
+    with span("rtt.tangent_pass"):
+        gfuzz = torch.zeros_like(p.fuzz)
+        gir = torch.zeros_like(p.ir)
+        common = dict(tangent_cap=tangent_cap, ids_base=ids_base, compaction=compaction)
+        fuzz_rows_j, ir_rows_j = _active_rows(sc, scalar_rows)
+        for name, rows_j, bit, grad in (("fuzz", fuzz_rows_j, 1, gfuzz),
+                                        ("ir", ir_rows_j, 2, gir)):
+            if not len(rows_j):
+                continue
+            base = getattr(p, name).detach()
+            with sync("prb_scalar.rows"):  # a copy to the device that waits on it
+                rows = torch.as_tensor(rows_j, device=base.device)
 
-        def scene_of(theta, _name=name, _base=base, _rows=rows):
-            return _with_all(sc, p._replace(**{_name: _base.index_copy(0, _rows, theta)}))
+            def scene_of(theta, _name=name, _base=base, _rows=rows):
+                return _with_all(sc, p._replace(**{_name: _base.index_copy(0, _rows, theta)}))
 
-        grad[rows] = _tangent_batches(
-            scene_of, base[rows], (touched & bit) != 0, ro, rd, key, max_depth, g, **common
-        )
-    return gfuzz, gir
+            grad[rows] = _tangent_batches(
+                scene_of, base[rows], (touched & bit) != 0, ro, rd, key, max_depth, g, **common
+            )
+        return gfuzz, gir
 
 
 def _assemble_grads(p: AllParams, gacc, gfuzz, gir) -> AllParams:

@@ -42,6 +42,7 @@ from ray_tracing_tpu_torch.models.scene import (
 from ray_tracing_tpu_torch.ops.cuda_scatter import scatter_add
 from ray_tracing_tpu_torch.render.integrator import stage_schedule, trace_compacted
 from ray_tracing_tpu_torch.render.prb import _A_EPS, _grad_rows, _zero_grads
+from ray_tracing_tpu_torch.utils.profiling import span
 
 F_SOLID = 1   # leaf contribution reads textures.color
 F_IMAGE = 2   # leaf contribution scatters into the atlas
@@ -140,9 +141,10 @@ def trace_taped(scene: SceneData, ro, rd, key, max_depth: int, *, ids_base: int 
     bitmask -- 1: the path reached a metal, 2: a dielectric --, tape)``
     with rad and touched in input-row order.  ``ids_base`` offsets the
     RNG ids; ``tape.stage_ids`` stay tile-local."""
-    writer = _TapeWriter(scene, max_depth, ro.shape[0], ids_base, ro.device)
-    rad = trace_compacted(scene, ro, rd, key, max_depth, ids_base=ids_base, tape=writer)
-    return rad, writer.touched, writer.tape()
+    with span("rtt.taped_forward"):
+        writer = _TapeWriter(scene, max_depth, ro.shape[0], ids_base, ro.device)
+        rad = trace_compacted(scene, ro, rd, key, max_depth, ids_base=ids_base, tape=writer)
+        return rad, writer.touched, writer.tape()
 
 
 def _flat_rows(leaf, texel, mat, flags, c, rad_after, g_s, tot_s):
@@ -198,6 +200,7 @@ def tape_sweep(scene: SceneData, tape: PrbTape, rad_total, g):
     table ``[gimg | gcol | gmet]`` (kernel K2 on the card: one call per
     tile, bit-repeatable; the plain version on the CPU, the same sums in
     the same order).  ``rad_total`` and ``g`` are in input-row order."""
-    table, gacc = _zero_grads(scene)
-    scatter_add(table, sweep_segments(scene, tape, rad_total, g))
-    return gacc
+    with span("rtt.tape_sweep"):
+        table, gacc = _zero_grads(scene)
+        scatter_add(table, sweep_segments(scene, tape, rad_total, g))
+        return gacc

@@ -22,6 +22,7 @@ from ray_tracing_tpu_torch.models.camera import Camera, CameraParam, camera_rays
 from ray_tracing_tpu_torch.models.scene import SceneData
 from ray_tracing_tpu_torch.ops import rng
 from ray_tracing_tpu_torch.render.integrator import trace, trace_compacted
+from ray_tracing_tpu_torch.utils.profiling import sync
 
 
 @dataclasses.dataclass
@@ -204,7 +205,8 @@ class RenderResult:
     def add(self, colors) -> int:
         """colors: (H, W, 3) linear radiance of one pass (tensor or array)."""
         if isinstance(colors, torch.Tensor):
-            colors = colors.detach().cpu().numpy()
+            with sync("renderer.to_host"):
+                colors = colors.detach().cpu().numpy()
         self.sum += np.asarray(colors, dtype=np.float32)
         self.count += 1
         return self.count

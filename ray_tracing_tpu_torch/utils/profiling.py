@@ -5,6 +5,12 @@ counterpart of ``ray_tracing_tpu/utils/profiling.py``.
 honest rays/s numerator); its ``summary()`` has the JAX package's keys.
 ``torch_trace`` wraps a ``torch.profiler`` profile (CPU activity, and
 CUDA on a CUDA device) and writes a Chrome trace.
+
+``span(name)`` marks a region of the program in the event stream of a
+recording ``torch.profiler`` (on the same clock as its device
+activities), and ``sync(site)`` marks one host read that blocks on the
+device: ``rtt.sync.<site>``.  Spans are on exactly when a profiler
+records; otherwise a span costs one is-enabled check.
 """
 
 from __future__ import annotations
@@ -15,6 +21,33 @@ import os
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional
+
+import torch
+
+# A span enters a RecordFunction of FUNCTION scope: the profiler records it
+# as a host event with the span's name.  torch.profiler.record_function
+# would enter one of USER_SCOPE, which the profiler also mirrors onto the
+# device timeline as a ``gpu_user_annotation`` covering the kernels the
+# region launched: readers of the device activities would count it as one.
+_RecordFunction = torch._C._profiler._RecordFunctionFast
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()  # shared: entering it allocates nothing
+
+
+def span(name: str):
+    """A context that records the region as ``name`` while a
+    ``torch.profiler`` records, and the shared null context otherwise."""
+    if not _profiler_enabled():
+        return _OFF
+    return _RecordFunction(name)
+
+
+def sync(site: str):
+    """:func:`span` ``rtt.sync.<site>``, around the one host read at a site
+    that waits on the device."""
+    if not _profiler_enabled():
+        return _OFF
+    return _RecordFunction("rtt.sync." + site)
 
 
 @dataclass
@@ -89,7 +122,6 @@ def torch_trace(log_dir: Optional[str], device="cpu"):
     if not log_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
