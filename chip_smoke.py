@@ -145,7 +145,8 @@ Phases (any failure raises and exits non-zero):
      on zy at 1024x1024 depth GRAD_DEPTH, one process, from wall colors at
      0.5 toward a target rendered at the true parameters under the step's
      own key (lr TRAIN_LR): one step on every leaf, finite, K1 launched
-     and K2 once per tile, equal to params - lr g with g from
+     and K2 for one sweep scatter per tile (the card's tile: the whole
+     image), equal to params - lr g with g from
      prb_loss_and_grad_all called tile by tile by hand (the color-linear
      leaves torch.equal, fuzz and IR to rtol 1e-4), and the loss change
      its color-linear and its whole update make; a witness of the fuzz
@@ -180,8 +181,8 @@ Phases (any failure raises and exits non-zero):
      with CUDA events) driven with every count at 0 just before: finite,
      non-negative, mean in WEEKEND_MEAN, K1 launched and no other phase-A
      kernel; render_with_stats at the third pass's key and depth
-     WEEKEND_TILE_DEPTH at the card's tile (65,536) and at the CPU rule's
-     (8,192), torch.equal, timed, with the same segments (segments/s);
+     WEEKEND_TILE_DEPTH at the card's tile (the whole 960,000 rays) and at
+     the CPU rule's (8,192), torch.equal, timed, with the same segments (segments/s);
      K1 timed on the camera and secondary tiles against its plain version and its operations
      bound; the busy share of a profiled 320x200 pass (one tile);
  33. ProgressiveRenderController over a second façade renderer of the
@@ -317,6 +318,7 @@ count approximately and are not recorded).
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import os
 import subprocess
@@ -388,7 +390,7 @@ GALLERY_MEAN = {"C1": (0.50, 0.70), "C2": (0.16, 0.22), "C3": (0.41, 0.50),
                 "C4": (0.34, 0.41), "C5": (0.16, 0.22), "C6": (0.33, 0.40)}
 MB_DEMO = ("--size", "96", "--spp", "4")  # the motion demo at 96^2, 4 spp, depth 8
 WALK_SIZE = 128  # the BVH walk's passes on C4 (phase 37)
-WALK_TILES = (4096, 65536)  # the JAX package's BVH tile cap (a TPU measurement) and the card's
+WALK_TILES = (4096, 65536)  # the JAX package's BVH tile cap (a TPU measurement) and the CPU's
 COLOR_LINEAR = ("color", "images", "metal_albedo")  # the leaves K2 accumulates
 TRI_FLOPS = 40  # det, 1/det, u, v, t of the triple-product form
 SLAB_FLOPS = 12  # a cluster AABB's six differences and six products
@@ -2191,6 +2193,27 @@ def elapsed_ms(fn):
     return out, start.elapsed_time(end)
 
 
+@contextlib.contextmanager
+def counted_sweeps():
+    """Counts the tape sweep's scatter-adds (render/prb_tape.py:tape_sweep,
+    one per tile) made inside, in a list of one int.  K2's wrapper makes
+    one call of each, or more where it cuts the rows of a large tile past
+    its blocks (ops/cuda_scatter.py:_calls)."""
+    from ray_tracing_tpu_torch.render import prb_tape
+
+    real, count = prb_tape.scatter_add, [0]
+
+    def counting(table, segments):
+        count[0] += 1
+        return real(table, segments)
+
+    prb_tape.scatter_add = counting
+    try:
+        yield count
+    finally:
+        prb_tape.scatter_add = real
+
+
 def leaves_report(tag: str, what: str, got, want, rtol: float) -> None:
     """Check the color-linear leaves torch.equal and fuzz/IR within
     ``rtol``; print the largest difference of each leaf."""
@@ -2361,13 +2384,14 @@ def train_phases(smi: str, size: int = SIZE, depth: int = DEPTH, dev: str = "cud
         prb_radiance_all,
         scalar_tangent_pass,
     )
-    from ray_tracing_tpu_torch.render.renderer import render_pass
+    from ray_tracing_tpu_torch.render.renderer import render_pass, tile_rule
 
     bundle = load_scene_json(os.path.join(ROOT, "data", "zy_scene.json"))
     scene = bundle.scene.to(dev)
     cam = Camera.build(bundle.camera, 1.0).to(dev)
     n = size * size
-    tiles = -(-n // TILE)
+    tile = tile_rule(n, dev)  # the step's own tile: on the card the whole image
+    tiles = -(-n // tile)
     key = rng.key(0)
     true = params_of(scene)
     mat = scene.materials
@@ -2383,19 +2407,22 @@ def train_phases(smi: str, size: int = SIZE, depth: int = DEPTH, dev: str = "cud
     ro, rd, _, k_trace = camera_rays(cam, key, size, size, True)
     step = make_prb_train_step_all_direct(cam, scene, mesh=make_mesh(dev), **kw)
     reset_counts()
-    (first, loss1), step1_ms = elapsed_ms(lambda: step(fit, scene, key, target))
+    with counted_sweeps() as sweeps:
+        (first, loss1), step1_ms = elapsed_ms(lambda: step(fit, scene, key, target))
     launches = {"k1": ci.LAUNCHES, "k2": cs.LAUNCHES}
     segments = traced_segments(scene, ro, rd, k_trace, depth)
     print(f"[28] card: {smi}")
     print(f"[28] zy {size}^2 depth {depth} make_prb_train_step_all_direct, lr {TRAIN_LR}, every "
           f"leaf: step 1 loss {float(loss1)!r} in {step1_ms!r} ms (with its warm-up); "
-          f"{segments} traced segments per step; launches {launches}")
+          f"{segments} traced segments per step; launches {launches}; {tiles} tile(s) of "
+          f"{tile}, {sweeps[0]} sweep scatter(s)")
     check(bool(torch.isfinite(loss1)), "the step's loss is finite")
-    check(launches["k1"] > 0 and launches["k2"] == tiles, "step 1 launched K1, K2 once per tile")
+    check(launches["k1"] > 0 and sweeps[0] == tiles and launches["k2"] >= tiles,
+          "step 1 launched K1, and K2 for one sweep scatter per tile")
     t_flat, weight = target.reshape(n, 3), torch.ones((n,), device=ro.device)
     grads, rads, cots, touches = None, [], [], []
-    for start in range(0, n, TILE):
-        rows = slice(start, min(start + TILE, n))
+    for start in range(0, n, tile):
+        rows = slice(start, min(start + tile, n))
         _, g_t, (rad, cot, touched) = prb_loss_and_grad_all(
             lambda r, _rows=rows: torch.sum(weight[_rows, None] * (r - t_flat[_rows]) ** 2)
             / (n * 3), fit, scene, ro[rows], rd[rows], k_trace, depth, ids_base=start,
@@ -2405,7 +2432,7 @@ def train_phases(smi: str, size: int = SIZE, depth: int = DEPTH, dev: str = "cud
         cots.append(cot)
         touches.append(touched)
     gfuzz, gir = scalar_tangent_pass(fit, scene, ro, rd, k_trace, depth, torch.cat(rads),
-                                     torch.cat(cots), torch.cat(touches), tangent_cap=TILE)
+                                     torch.cat(cots), torch.cat(touches), tangent_cap=tile)
     direct = grads._replace(fuzz=gfuzz, ir=gir)
     by_hand = AllParams(*(p - TRAIN_LR * g for p, g in zip(fit, direct)))
     leaves_report("28", "step 1 against params - lr g by hand", first, by_hand, 1e-4)
@@ -2434,17 +2461,19 @@ def train_phases(smi: str, size: int = SIZE, depth: int = DEPTH, dev: str = "cud
 
     reset_counts()
     params, losses, step_ms = fit, [], []
-    for _ in range(3):
-        (params, loss), ms = elapsed_ms(lambda p=params: color_step(p))
-        losses.append(float(loss))
-        step_ms.append(ms)
+    with counted_sweeps() as sweeps:
+        for _ in range(3):
+            (params, loss), ms = elapsed_ms(lambda p=params: color_step(p))
+            losses.append(float(loss))
+            step_ms.append(ms)
     launches_c = {"k1": ci.LAUNCHES, "k2": cs.LAUNCHES}
     mean_ms = sum(step_ms) / len(step_ms)
     print(f"[28] three color-linear steps: losses {losses!r}; ms per step {step_ms!r}: "
           f"{segments / (mean_ms / 1e3)!r} segments/s; launches {launches_c}")
     check(all(np.isfinite(losses)), "every train-step loss is finite")
     check(losses[2] < losses[0], "the third step's loss is below the first's")
-    check(launches_c["k2"] == 3 * tiles, "K2 once per tile in each step")
+    check(sweeps[0] == 3 * tiles and launches_c["k2"] >= 3 * tiles,
+          "K2 for one sweep scatter per tile in each step")
     check(torch.equal(params.fuzz, fit.fuzz) and torch.equal(params.ir, fit.ir),
           "scalar_rows=((), ()) holds fuzz and IR")
 
@@ -2586,7 +2615,7 @@ def weekend_phases(smi: str) -> dict:
     from ray_tracing_tpu_torch.ops import _build
     from ray_tracing_tpu_torch.ops import cuda_intersect as ci
     from ray_tracing_tpu_torch.ops import rng
-    from ray_tracing_tpu_torch.render.renderer import _pick_tile_size
+    from ray_tracing_tpu_torch.render.renderer import tile_rule
 
     # 32. the document through the port's editor and its project JSON
     scene, camera, param = weekend_generated()
@@ -2629,7 +2658,9 @@ def weekend_phases(smi: str) -> dict:
     # with every count at 0 just before; one warm-up pass and two timed
     renderer = v4ray.Renderer(param, camera, scene, device="cuda")
     inner = renderer._inner
-    check(inner.tile_size == TILE, f"the card's renderer tiles by {TILE}: {inner.tile_size}")
+    card_tile = tile_rule(w * h, "cuda")
+    check(inner.tile_size == card_tile == w * h,
+          f"the card's renderer traces the whole image in one tile: {inner.tile_size}")
     reset_counts()
     t0 = time.perf_counter()
     images, pass_ms = zip(*[facade_pass(renderer) for _ in range(3)])
@@ -2652,13 +2683,13 @@ def weekend_phases(smi: str) -> dict:
     # segments, at the card's tile and at the CPU rule's pick for 485
     # spheres: the same image and segments
     key3 = rng.fold_in(rng.key(0), 3)
-    cpu_tile = _pick_tile_size(w * h, data.n_spheres + data.n_rects)
+    cpu_tile = tile_rule(w * h, "cpu", data.n_spheres + data.n_rects)
     print(f"[32] card: {smi}")
-    print(f"[32] ms per {w}x{h} depth-50 pass at tile {TILE} (CUDA events; the first is the "
-          f"warm-up): {list(pass_ms)!r}")
+    print(f"[32] ms per {w}x{h} depth-50 pass at tile {card_tile} (CUDA events; the first is "
+          f"the warm-up): {list(pass_ms)!r}")
     tile_param = dataclasses.replace(param, max_depth=WEEKEND_TILE_DEPTH)
     at_tile, first = {}, None
-    for tile in (TILE, cpu_tile):
+    for tile in (card_tile, cpu_tile):
         r = Renderer(tile_param, camera, data, device="cuda", tile_size=tile)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2672,8 +2703,8 @@ def weekend_phases(smi: str) -> dict:
         again = again.cpu().numpy()
         first = again if first is None else first
         check(np.array_equal(again, first), f"the iteration-3 key at depth {WEEKEND_TILE_DEPTH} "
-              f"renders torch.equal at tiles {TILE} and {tile}")
-    check(at_tile[cpu_tile][0] == at_tile[TILE][0], "the same segments at both tiles")
+              f"renders torch.equal at tiles {card_tile} and {tile}")
+    check(at_tile[cpu_tile][0] == at_tile[card_tile][0], "the same segments at both tiles")
 
     # K1 timed on the busiest camera tile and the secondary tile, against
     # its plain version and its bound (operations: 65,536 x 485 sphere tests)

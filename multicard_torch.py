@@ -25,9 +25,11 @@ Every rank runs, under one key:
    1e-6, leaves rtol 1e-6 and atol 1e-9: the ranks' partial sums are
    added in another order), each one's share of it printed.  The traced
    segments summed over the ranks equal the one-card step's; where each
-   rank's shard is a run of whole tiles of the one-card pass (1024^2 over
-   1, 2 or 4 ranks), so do K2's calls, and the render pass's K1 launches
-   (step 1: the forward's trace) equal world 1's.  The step's K1
+   rank's shard is a run of whole tiles of the one-card pass
+   (``renderer.tile_rule``: on the card that pass is one tile, so at one
+   rank; with ``--cpu`` tiles of 65,536, so 1024^2 over 1, 2 or 4
+   ranks), so do K2's calls, and the render pass's K1 launches (step 1:
+   the forward's trace) equal world 1's.  The step's K1
    launches are printed beside world 1's: each rank runs its own tangent
    pass over its touched rays;
 3. ``make_prb_train_step_all`` (the autograd surface): equal to the
@@ -156,7 +158,8 @@ def run_rank(args, cpu: bool) -> dict:
     from ray_tracing_tpu_torch.ops import rng
     from ray_tracing_tpu_torch.parallel import mesh as pm
     from ray_tracing_tpu_torch.render.integrator import trace
-    from ray_tracing_tpu_torch.render.prb_scalar import TILE_SIZE, AllParams, _tiles, params_of
+    from ray_tracing_tpu_torch.render.prb_scalar import AllParams, _tiles, params_of
+    from ray_tracing_tpu_torch.render.renderer import tile_rule
 
     mesh = pm.make_mesh("cpu" if cpu else "cuda")
     rank, k, dev = mesh.rank, mesh.world, mesh.device
@@ -202,8 +205,10 @@ def run_rank(args, cpu: bool) -> dict:
     kw = dict(width=size, height=size, max_depth=depth, lr=LR)
     ro_s, rd_s, k_trace, rows, n_pad = pm._rank_rays(cam, key, size, size, mesh)
     per = n_pad // k
-    # the shards are runs of the one-card pass's tiles: the counts add up
-    aligned = n % (8 * k) == 0 and per % TILE_SIZE == 0
+    # the shards are runs of the one-card pass's tiles (tile_rule's, on the
+    # card the whole wavefront up to its cap): the counts add up
+    tile = tile_rule(n_pad, dev)
+    aligned = n % (8 * k) == 0 and tile_rule(per, dev) == tile and per % tile == 0
     rec = {"rank": rank, "device": str(dev), "card": card, "compiles": _build.COMPILES}
 
     def reduced(values: dict) -> dict:
@@ -216,7 +221,7 @@ def run_rank(args, cpu: bool) -> dict:
         real = max(0, min(rows_m.stop, n) - rows_m.start)
         return sum(int(trace(scene, ro[t], rd[t], k_trace, depth, with_stats=True,
                              ids_base=rows_m.start + t.start)[1])
-                   for t in _tiles(real, TILE_SIZE))
+                   for t in _tiles(real, tile_rule(real, dev)))
 
     def within_one_card_bound(name, got, want, l_got, l_want) -> dict:
         """Checks the loss and each leaf against world 1's within the

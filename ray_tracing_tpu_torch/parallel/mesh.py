@@ -29,7 +29,6 @@ from ray_tracing_tpu_torch.models.scene import SceneData
 from ray_tracing_tpu_torch.render.integrator import trace
 from ray_tracing_tpu_torch.render.prb import prb_radiance
 from ray_tracing_tpu_torch.render.prb_scalar import (
-    TILE_SIZE,
     AllParams,
     _active_rows,
     _tiles,
@@ -37,6 +36,8 @@ from ray_tracing_tpu_torch.render.prb_scalar import (
     prb_radiance_all,
     scalar_tangent_pass,
 )
+from ray_tracing_tpu_torch.render.renderer import tile_rule
+from ray_tracing_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,13 +148,15 @@ def _rank_rays(camera: Camera, key, width: int, height: int, mesh: Mesh):
 
 
 def sharded_trace(scene: SceneData, ro, rd, key, max_depth: int, mesh: Mesh, *,
-                  tile_size: int = TILE_SIZE):
+                  tile_size: int | None = None):
     """Trace a wavefront (N, 3) with N a multiple of the world size: each
-    rank traces its shard densely, ``tile_size`` rays at a time, with ids
+    rank traces its shard densely, ``tile_size`` rays at a time (None:
+    the device's tile for the shard, renderer.tile_rule), with ids
     ``rank * shard + row``, and gathers the others'.  Returns (N, 3)
     radiance on every rank, differentiable in this rank's part."""
     rows = mesh.shard(ro.shape[0])
     ro_s, rd_s = ro[rows], rd[rows]
+    tile_size = tile_size or tile_rule(ro_s.shape[0], ro_s.device)
     rad = torch.cat([trace(scene, ro_s[t], rd_s[t], key, max_depth, ids_base=rows.start + t.start)
                      for t in _tiles(ro_s.shape[0], tile_size)])
     return _gather_rows(mesh, rad)
@@ -161,7 +164,7 @@ def sharded_trace(scene: SceneData, ro, rd, key, max_depth: int, mesh: Mesh, *,
 
 def sharded_render_pass(scene: SceneData, camera: Camera, key, *, width: int, height: int,
                         max_depth: int, antialias: bool, mesh: Mesh,
-                        tile_size: int = TILE_SIZE):
+                        tile_size: int | None = None):
     """One 1-spp pass with the ray axis split over ``mesh``: (H, W, 3)
     linear radiance on every rank, under autograd when the scene's
     tensors require grad (dense reverse mode: small images only)."""
@@ -201,11 +204,13 @@ def sharded_prb_render_all(params: AllParams, scene: SceneData, camera: Camera, 
 
 
 def tiled_loss_and_grad(tile_loss, params: AllParams, scene: SceneData, ro, rd, key,
-                        max_depth: int, *, ids_base: int = 0, tile_size: int = TILE_SIZE,
+                        max_depth: int, *, ids_base: int = 0, tile_size: int | None = None,
                         compaction: bool = True, use_tape: bool = True, scalar_rows=None):
     """The loss and full-parameter gradient of a wavefront, traced
-    ``tile_size`` rays at a time under one key (the bench protocol):
-    per tile ``prb_loss_and_grad_all(..., ids_base=ids_base + start,
+    ``tile_size`` rays at a time (None: the device's tile,
+    renderer.tile_rule: on the card the whole wavefront) under one key
+    (the bench protocol): per tile, one ``rtt.tile`` span,
+    ``prb_loss_and_grad_all(..., ids_base=ids_base + start,
     defer_scalars=True)``, the tiles' losses and color-linear gradients
     summed in tile order, then one ``scalar_tangent_pass`` over the whole
     wavefront in batches of ``tile_size`` rays.
@@ -213,18 +218,20 @@ def tiled_loss_and_grad(tile_loss, params: AllParams, scene: SceneData, ro, rd, 
     ``tile_loss(rad, rows)`` is the loss of the tile's rays ``rows`` (a
     slice of ``ro``); the losses must add up to the wavefront's.  Returns
     ``(loss tensor, AllParams)``."""
+    tile_size = tile_size or tile_rule(ro.shape[0], ro.device)
     loss, grads, rads, cotangents, touches = None, None, [], [], []
     for rows in _tiles(ro.shape[0], tile_size):
-        l_t, g_t, (rad, g_ray, touched) = prb_loss_and_grad_all(
-            lambda r, _rows=rows: tile_loss(r, _rows), params, scene, ro[rows], rd[rows], key,
-            max_depth, compaction=compaction, use_tape=use_tape, ids_base=ids_base + rows.start,
-            defer_scalars=True,
-        )
-        loss = l_t if loss is None else loss + l_t
-        grads = g_t if grads is None else AllParams(*(a + b for a, b in zip(grads, g_t)))
-        rads.append(rad)
-        cotangents.append(g_ray)
-        touches.append(touched)
+        with span("rtt.tile"):
+            l_t, g_t, (rad, g_ray, touched) = prb_loss_and_grad_all(
+                lambda r, _rows=rows: tile_loss(r, _rows), params, scene, ro[rows], rd[rows],
+                key, max_depth, compaction=compaction, use_tape=use_tape,
+                ids_base=ids_base + rows.start, defer_scalars=True,
+            )
+            loss = l_t if loss is None else loss + l_t
+            grads = g_t if grads is None else AllParams(*(a + b for a, b in zip(grads, g_t)))
+            rads.append(rad)
+            cotangents.append(g_ray)
+            touches.append(touched)
     gfuzz, gir = scalar_tangent_pass(
         params, scene, ro, rd, key, max_depth, torch.cat(rads), torch.cat(cotangents),
         torch.cat(touches), compaction=compaction, scalar_rows=scalar_rows,

@@ -46,8 +46,8 @@ from ray_tracing_tpu_torch.models.scene import SceneData
 
 _A_EPS = 1e-6
 
-# rays per tile of the autograd surface and of the tiled train step, as
-# the bench protocol traces them on the card
+# rays per tile of the gradient path on the CPU (renderer.tile_rule), and
+# of the bench protocol (bench_torch.py, as bench.py traces its tiles)
 TILE_SIZE = 65536
 
 
@@ -156,7 +156,7 @@ def prb_grad_dense(scene: SceneData, ro, rd, key, max_depth: int, rad_total, g, 
 
 def prb_radiance_full(params: PrbParams, scene: SceneData, ro, rd, key, max_depth: int, *,
                       compaction: bool = True, ids_base: int = 0,
-                      tile_size: int | None = TILE_SIZE):
+                      tile_size: int | None = None):
     """Per-ray radiance (N, 3), differentiable by autograd in every
     color-linear parameter (solid colors, atlas texels, metal albedo):
     ``prb_scalar.prb_radiance_all`` with the tangent pass disabled
@@ -171,7 +171,7 @@ def prb_radiance_full(params: PrbParams, scene: SceneData, ro, rd, key, max_dept
 
 
 def prb_radiance(colors, scene: SceneData, ro, rd, key, max_depth: int, *,
-                 compaction: bool = True, ids_base: int = 0, tile_size: int | None = TILE_SIZE):
+                 compaction: bool = True, ids_base: int = 0, tile_size: int | None = None):
     """Colors-only :func:`prb_radiance_full`: the atlas and metal albedo
     enter as the scene holds them."""
     params = PrbParams(colors, scene.textures.images, scene.materials.albedo)

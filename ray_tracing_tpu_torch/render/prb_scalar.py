@@ -36,8 +36,9 @@ import torch.autograd.forward_ad as fwAD
 
 from ray_tracing_tpu_torch.models.scene import MAT_DIELECTRIC, MAT_METAL, SceneData
 from ray_tracing_tpu_torch.render.integrator import trace, trace_compacted, trace_subset_dot
-from ray_tracing_tpu_torch.render.prb import TILE_SIZE, prb_grad_dense
+from ray_tracing_tpu_torch.render.prb import prb_grad_dense
 from ray_tracing_tpu_torch.render.prb_tape import tape_sweep, trace_taped
+from ray_tracing_tpu_torch.render.renderer import tile_rule
 from ray_tracing_tpu_torch.utils.profiling import span, sync
 
 
@@ -234,11 +235,12 @@ class _PrbRadianceAll(torch.autograd.Function):
 
 def prb_radiance_all(params: AllParams, scene: SceneData, ro, rd, key, max_depth: int, *,
                      compaction: bool = True, scalar_rows=None, tangent_cap: int | None = None,
-                     ids_base: int = 0, tile_size: int | None = TILE_SIZE):
+                     ids_base: int = 0, tile_size: int | None = None):
     """Per-ray radiance (N, 3), differentiable by autograd in the whole
     parameter set (``params``' five leaves; any that require grad).
 
-    The forward traces ``tile_size`` rays at a time under the one key
+    The forward traces ``tile_size`` rays at a time (None: the device's
+    tile, renderer.tile_rule) under the one key
     with ids ``ids_base + row`` (compacted, or dense with
     ``compaction=False``) and keeps only its inputs and the radiance.
     The backward replays the same paths (the taped forward and its sweep
@@ -249,12 +251,12 @@ def prb_radiance_all(params: AllParams, scene: SceneData, ro, rd, key, max_depth
     selects the tangent rows as (fuzz rows, IR rows); ``((), ())``
     disables the tangent pass."""
     opts = dict(compaction=compaction, scalar_rows=scalar_rows, tangent_cap=tangent_cap,
-                ids_base=ids_base, tile_size=tile_size)
+                ids_base=ids_base, tile_size=tile_size or tile_rule(ro.shape[0], ro.device))
     return _PrbRadianceAll.apply(scene, ro, rd, key, max_depth, opts, *params)
 
 
 def scalar_radiance(params: ScalarParams, scene: SceneData, ro, rd, key, max_depth: int, *,
-                    compaction: bool = True, tile_size: int | None = TILE_SIZE):
+                    compaction: bool = True, tile_size: int | None = None):
     """Scalars-only :func:`prb_radiance_all`: the color-linear leaves are
     the scene's own."""
     full = params_of(scene)._replace(fuzz=params.fuzz, ir=params.ir)

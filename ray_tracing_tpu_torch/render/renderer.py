@@ -5,8 +5,9 @@ src/renderer.rs:72-332, 335-406).
 ``Renderer.render(key)`` produces one full-image 1-spp pass of linear
 radiance on the renderer's device, ``render_to_noise`` repeats passes
 until a noise target; ``RenderResult`` accumulates passes
-and tone-maps.  Rays are traced in fixed-size tiles, so the
-(rays x primitives) candidate grids of the plain phase A stay bounded.
+and tone-maps.  Rays are traced in tiles (:func:`tile_rule`): on the
+CPU of a bounded size, so the (rays x primitives) candidate grids of the
+plain phase A stay bounded; on the card the whole wavefront at once.
 """
 
 from __future__ import annotations
@@ -22,7 +23,14 @@ from ray_tracing_tpu_torch.models.camera import Camera, CameraParam, camera_rays
 from ray_tracing_tpu_torch.models.scene import SceneData
 from ray_tracing_tpu_torch.ops import rng
 from ray_tracing_tpu_torch.render.integrator import trace, trace_compacted
-from ray_tracing_tpu_torch.utils.profiling import sync
+from ray_tracing_tpu_torch.render.prb import TILE_SIZE
+from ray_tracing_tpu_torch.utils.profiling import span, sync
+
+# the most rays the card traces in one tile: every wavefront of the
+# port's scenes and cells (1024^2 at most) in one
+CARD_TILE = 1 << 20
+# the most (tile x primitives) entries of the plain phase A's grid on the CPU
+GRID_BUDGET = 4_194_304
 
 
 @dataclasses.dataclass
@@ -45,15 +53,25 @@ class RendererParam:
         )
 
 
-def _pick_tile_size(n_rays: int, n_prims: int, grid_budget: int = 4_194_304) -> int:
-    """Bound the (tile x primitives) candidate grid to ``grid_budget``
-    entries, with tiles of 512 to 65536 rays.  The grid is the plain
-    phase A's; on the card K1 loops over the table inside the kernel, so
-    a CUDA renderer passes ``n_prims=0`` and its tile is bounded by the
-    ray count and 65536 alone."""
-    budget = grid_budget // max(n_prims, 1)
+def tile_rule(n_rays: int, device, n_prims: int | None = None) -> int:
+    """Rays per tile, one dispatch of the bounce's kernel sequence, for a
+    wavefront of ``n_rays`` rays on ``device``.
+
+    On the card K1, K2 and K6 loop over their tables inside the kernel,
+    and every per-bounce launch and host sync is paid once per tile: the
+    whole wavefront is one tile, up to :data:`CARD_TILE` rays.  On the
+    CPU the plain phase A builds a (tile x primitives) candidate grid: a
+    renderer (``n_prims`` its spheres and rects) keeps it within
+    :data:`GRID_BUDGET` entries, with tiles of 512 to 65,536 rays; the
+    gradient path (``n_prims`` None) traces
+    :data:`~ray_tracing_tpu_torch.render.prb.TILE_SIZE` rays a tile."""
+    if torch.device(device).type == "cuda":
+        return max(1, min(n_rays, CARD_TILE))
+    if n_prims is None:
+        return TILE_SIZE
+    budget = GRID_BUDGET // max(n_prims, 1)
     tile = 512
-    while tile * 2 <= min(budget, n_rays, 65536):
+    while tile * 2 <= min(budget, n_rays, TILE_SIZE):
         tile *= 2
     return tile
 
@@ -66,7 +84,7 @@ def render_pass(scene: SceneData, camera: Camera, key, *, width: int, height: in
 
     Every tile is traced under the one trace key with globally unique
     ray ids (``ids_base``), so the image does not depend on the tile
-    size."""
+    size.  Each tile is one ``rtt.tile`` span."""
     n = width * height
     scene = stamp_shutter(scene, camera)
     ro, rd, _time, k_trace = camera_rays(camera, key, width, height, antialias)
@@ -75,12 +93,13 @@ def render_pass(scene: SceneData, camera: Camera, key, *, width: int, height: in
     fn = trace_compacted if compaction else trace
     for start in range(0, n, tile_size):
         stop = min(start + tile_size, n)
-        out = fn(scene, ro[start:stop], rd[start:stop], k_trace, max_depth,
-                 with_stats=with_stats, ids_base=start)
-        if with_stats:
-            out, seg = out
-            segments = segments + seg
-        colors[start:stop] = out
+        with span("rtt.tile"):
+            out = fn(scene, ro[start:stop], rd[start:stop], k_trace, max_depth,
+                     with_stats=with_stats, ids_base=start)
+            if with_stats:
+                out, seg = out
+                segments = segments + seg
+            colors[start:stop] = out
     img = colors.reshape(height, width, 3)
     return (img, segments) if with_stats else img
 
@@ -88,7 +107,9 @@ def render_pass(scene: SceneData, camera: Camera, key, *, width: int, height: in
 class Renderer:
     """A compiled scene and camera on one device (reference
     Renderer::new, renderer.rs:84-93).  ``device`` is required: the
-    renderer never guesses where to run."""
+    renderer never guesses where to run.  ``tile_size`` None takes
+    :func:`tile_rule`'s tile for the image, the device and the scene's
+    spheres and rects."""
 
     def __init__(self, param: RendererParam, camera: CameraParam, scene: SceneData, *,
                  device, tile_size: Optional[int] = None, compaction: bool = True):
@@ -96,10 +117,8 @@ class Renderer:
         self.device = torch.device(device)
         self.scene = scene.to(self.device)
         self.camera = Camera.build(camera, param.width / param.height).to(self.device)
-        self.tile_size = tile_size or _pick_tile_size(
-            param.width * param.height,
-            scene.n_spheres + scene.n_rects if self.device.type == "cpu" else 0,
-        )
+        self.tile_size = tile_size or tile_rule(param.width * param.height, self.device,
+                                                scene.n_spheres + scene.n_rects)
         self.max_depth = param.max_depth if param.max_depth is not None else 20
         self.antialias = param.antialias if param.antialias is not None else True
         self._pass_opts = dict(

@@ -3,7 +3,8 @@ plain versions on the card (K1, K3 and K4 also on tables past 48 KB and
 past what shared memory holds; K5 over a table above 32,768 triangles
 without clusters, and the brute-force grid against K5; K2 bit for bit
 against its plain version run on the CPU, and repeatable), the
-render and gradient paths on the card, and multicard_torch.py with one
+render and gradient paths on the card (the card's one tile against
+tiles of 65,536 among them), and multicard_torch.py with one
 NCCL rank on each card present.  They skip without a GPU.  The
 file imports no JAX, so on a machine with a GPU and without JAX it runs
 on its own:
@@ -630,6 +631,61 @@ def test_c6_render_on_card(cuda, c6):
     """C6: K6 launched, K5 not."""
     scene, cam, _ = c6
     _scene_render_on_card(cuda, scene, cam, lambda: (ct.CL_LAUNCHES, ct.LAUNCHES), 0, 1)
+
+
+def test_c6_default_tile_equals_tiles_of_65536(cuda, c6):
+    """C6 at its 512x512, depth 3: the card's default tile, the whole
+    wavefront of 262,144 rays in one, renders the image that tiles of
+    65,536 render, bit for bit (compaction is per tile and equals the
+    dense loop)."""
+    scene, cam, _ = c6
+    param = prt.RendererParam(512, 512, max_depth=3)
+    one = prt.Renderer(param, cam, scene, device=cuda)
+    tiled = prt.Renderer(param, cam, scene, device=cuda, tile_size=65536)
+    assert one.tile_size == 512 * 512
+    assert torch.equal(one.render(3), tiled.render(3))
+
+
+def test_zy_train_step_default_tile_matches_tiles_of_65536(cuda, zy, monkeypatch):
+    """zy at its 800x800, depth 3: the direct train step at the card's
+    default tile (the 640,000 rays in one tile, one tangent batch per
+    active row) against the same step with tiles of 65,536 (ten), from
+    the same state under the same key: the loss within the train cell's
+    loss_gap (2e-4), each leaf's gradient, read from the update as the
+    benchmark reads it, within its grad_gap (1.5e-2: the gap between the
+    norms over the larger of the leaf's and the median leaf's)."""
+    from ray_tracing_tpu_torch.parallel import mesh as pm
+    from ray_tracing_tpu_torch.render.prb_scalar import AllParams
+
+    lr, size = 0.01, 800
+    scene = zy.scene.to(cuda)
+    camera = Camera.build(zy.camera, 1.0).to(cuda)
+    step = pm.make_prb_train_step_all_direct(camera, scene, width=size, height=size,
+                                             max_depth=3, mesh=pm.make_mesh(cuda), lr=lr)
+    params = params_of(scene)
+    target = torch.full((size, size, 3), 0.25, device=cuda)
+    tiles, traced, tiled = [], pm.prb_loss_and_grad_all, pm.tiled_loss_and_grad
+
+    def counted(*args, **kw):
+        tiles[-1] += 1
+        return traced(*args, **kw)
+
+    monkeypatch.setattr(pm, "prb_loss_and_grad_all", counted)
+    out = {}
+    for tile in (None, 65536):
+        monkeypatch.setattr(pm, "tiled_loss_and_grad",
+                            lambda *a, _t=tile, **kw: tiled(*a, **dict(kw, tile_size=_t)))
+        tiles.append(0)
+        new, loss = step(params, scene, rng.key(2), target)
+        out[tile] = float(loss), [float(((p.double() - q.double()) / lr).norm())
+                                  for p, q in zip(params, new)]
+    assert tiles == [1, 10]
+    (loss_1, norms_1), (loss_10, norms_10) = out[None], out[65536]
+    assert abs(loss_1 - loss_10) <= 2e-4 * abs(loss_10)
+    median = float(np.median(norms_10))
+    assert norms_10[0] > 0 and median > 0
+    for name, a, b in zip(AllParams._fields, norms_1, norms_10):
+        assert abs(a - b) <= 1.5e-2 * max(b, median), (name, a, b)
 
 
 def test_motion_render_on_card(cuda, motion):

@@ -192,7 +192,7 @@ def test_port_never_imports_jax_or_the_jax_package():
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     sources += ["chip_smoke.py", "bench_scaling_torch.py", "bench_torch.py", "multicard_torch.py",
                 "tools/perf/ladder_torch.py", "tools/perf/profile_pass_torch.py",
-                "tools/perf/profiler_probe_torch.py"]
+                "tools/perf/profiler_probe_torch.py", "tools/perf/tile_ladder_torch.py"]
     assert len(sources) > 10
     for src in sources:
         with open(src) as fh:

@@ -70,23 +70,27 @@ def renderers():
 
 @pytest.mark.parametrize("which", ["zy", "mesh"])
 def test_render_spans_nest(renderers, which):
-    """One pass: each bounce's ``rtt.intersect`` then its ``rtt.shade``,
-    one each and apart; ``rtt.compact`` before the second stage with its
-    live count inside; every other span a sync span, those of the
-    textures inside a shade, the pass's host copy outside every span."""
+    """One pass: one ``rtt.tile`` (16x16 on the CPU), holding each
+    bounce's ``rtt.intersect`` then its ``rtt.shade``, one each and
+    apart; ``rtt.compact`` before the second stage with its live count
+    inside; every other span a sync span, those of the textures inside a
+    shade, the pass's host copy outside every span."""
     r = renderers[which]
     result = prt.RenderResult(SIZE, SIZE)
     _, spans = _spans(lambda: result.add(r.render(3)))
     by = lambda name: [sp for sp in spans if sp[0] == name]  # noqa: E731
+    tile = by("rtt.tile")
     intersect, shade, compact = by("rtt.intersect"), by("rtt.shade"), by("rtt.compact")
+    assert len(tile) == 1
     assert len(intersect) == len(shade) > RENDER_DEPTH // 2
     assert len(compact) == 1
+    assert all(_inside(sp, tile) for sp in intersect + shade + compact)
     for i, s in zip(intersect, shade):
         assert i[2] <= s[1]
     for a, b in zip(shade, intersect[1:]):
         assert a[2] <= b[1]
     syncs = [sp for sp in spans if sp[0].startswith("rtt.sync.")]
-    assert len(syncs) + len(intersect) + len(shade) + len(compact) == len(spans)
+    assert len(syncs) + len(tile) + len(intersect) + len(shade) + len(compact) == len(spans)
     names = {sp[0] for sp in syncs}
     assert {"rtt.sync.integrator.live_count", "rtt.sync.integrator.alive_any",
             "rtt.sync.renderer.to_host"} <= names
@@ -94,7 +98,7 @@ def test_render_spans_nest(renderers, which):
     textures = [sp for sp in syncs if sp[0].startswith("rtt.sync.textures.")]
     assert all(_inside(sp, shade) for sp in textures)
     assert bool(textures) == (which == "zy")  # zy's image and noise textures
-    assert not _inside(by("rtt.sync.renderer.to_host")[0], intersect + shade + compact)
+    assert not _inside(by("rtt.sync.renderer.to_host")[0], tile + intersect + shade + compact)
 
 
 def _tiled(bundle, tile_size):
@@ -111,9 +115,10 @@ def _tiled(bundle, tile_size):
 
 
 def test_train_spans_per_tile():
-    """``tiled_loss_and_grad`` over two tiles: ``rtt.taped_forward`` and
-    ``rtt.tape_sweep`` once per tile, in that order, and then one
-    ``rtt.tangent_pass``, which holds its own bounces and sync spans."""
+    """``tiled_loss_and_grad`` over two tiles: one ``rtt.tile`` per tile,
+    holding ``rtt.taped_forward`` and ``rtt.tape_sweep``, in that order,
+    and then one ``rtt.tangent_pass`` outside the tiles, which holds its
+    own bounces and sync spans."""
     bundle, _ = _zy(3)
     _, spans = _spans(_tiled(bundle, SIZE * SIZE // 2))
     top = [sp for sp in spans if sp[0] in ("rtt.taped_forward", "rtt.tape_sweep",
@@ -122,7 +127,12 @@ def test_train_spans_per_tile():
         "rtt.tangent_pass"]
     for a, b in zip(top, top[1:]):
         assert a[2] <= b[1]
+    tiles = [sp for sp in spans if sp[0] == "rtt.tile"]
+    assert len(tiles) == 2
+    for i, tile in enumerate(tiles):
+        assert all(_inside(sp, [tile]) for sp in top[2 * i:2 * i + 2])
     tangent = top[-1:]
+    assert not _inside(tangent[0], tiles)
     assert any(sp[0] == "rtt.sync.prb_scalar.touched" and _inside(sp, tangent) for sp in spans)
     assert any(sp[0] == "rtt.intersect" and _inside(sp, tangent) for sp in spans)
 
