@@ -3,8 +3,9 @@ main.py:1515-1561) with the reference's preview semantics: preview
 renders use depth 1, no antialias, pinhole aperture, a white
 environment, and each material's ``apply_preview`` stand-in.
 
-A copy of ``ray_tracing_tpu/editor/generate.py`` whose only change is
-its imports; it builds the port's façade scene."""
+A copy of ``ray_tracing_tpu/editor/generate.py`` whose only changes are
+its imports and the ``rtt.generate`` span (``utils/profiling.py``); it
+builds the port's façade scene."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Dict, Optional
 from uuid import UUID
 
 import ray_tracing_tpu_torch.v4ray as v4ray
+from ray_tracing_tpu_torch.utils.profiling import span
 from ray_tracing_tpu_torch.v4ray_frontend.properties import TextureProperty
 
 from ray_tracing_tpu_torch.editor.model import (
@@ -36,6 +38,11 @@ def generate(
 
     Raises ValueError when the camera is missing/invalid (the reference
     disables the render button in that case)."""
+    with span("rtt.generate"):
+        return _generate(doc, analysis, preview)
+
+
+def _generate(doc: Document, analysis: Optional[Analysis], preview: bool):
     a = analysis or analyze(doc)
     if not a.camera_valid:
         raise ValueError("camera is missing or invalid")

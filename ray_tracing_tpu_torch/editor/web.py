@@ -17,7 +17,12 @@ on a ``device`` (default ``"cuda"``; ``main`` exits 1 with a message when
 no GPU is present, the session raises) through the port's v4ray façade,
 and ``render_png`` encodes with the port's ``utils/image.py:encode_png``
 (numpy and zlib, no Pillow).  The page's HTML and JS are a verbatim
-copy; the rest differs only in its imports.
+copy.  The handlers' work is the session's (``post``, ``state_reply``,
+``render_reply``: the reply's bytes, without the socket), and it carries
+the port's spans (``utils/profiling.py``): ``rtt.edit`` (an edit, undo
+or redo), ``rtt.state`` (the state and its JSON), ``rtt.png`` (tone
+map, PNG, base64 and JSON) and ``rtt.sync.web.to_host`` (the pass's
+copy to the host).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from ray_tracing_tpu_torch.editor.model import (
 )
 from ray_tracing_tpu_torch.editor.project import document_from_json, document_to_json
 from ray_tracing_tpu_torch.utils.image import encode_png
+from ray_tracing_tpu_torch.utils.profiling import span, sync
 from ray_tracing_tpu_torch.v4ray_frontend.properties import (
     ColorProperty,
     FloatProperty,
@@ -188,6 +194,10 @@ class EditorSession:
 
     # -- edits ---------------------------------------------------------
     def apply_edit(self, req: Dict[str, Any]) -> None:
+        with span("rtt.edit"):
+            self._apply_edit(req)
+
+    def _apply_edit(self, req: Dict[str, Any]) -> None:
         doc = self.tree.document
         action = req["action"]
         if action == "add_object":
@@ -253,6 +263,36 @@ class EditorSession:
         self._accum = None
         self._count = 0
 
+    # -- replies (the handlers' work, without the socket; the caller
+    # holds ``lock``) ---------------------------------------------------
+    def post(self, path: str, body: Dict[str, Any]) -> Optional[bytes]:
+        """The JSON reply to a POST of ``body`` to ``path``: the edit,
+        undo or redo, then the state; None for any other path."""
+        if path == "/api/edit":
+            self.apply_edit(body)
+        elif path in ("/api/undo", "/api/redo"):
+            with span("rtt.edit"):
+                if path == "/api/undo":
+                    self.tree.undo()
+                else:
+                    self.tree.redo()
+                self._invalidate_render()
+        else:
+            return None
+        return self.state_reply()
+
+    def state_reply(self) -> bytes:
+        """The JSON reply of :meth:`state_json`."""
+        with span("rtt.state"):
+            return _reply(self.state_json())
+
+    def render_reply(self, passes: int = 1) -> bytes:
+        """The JSON reply to ``GET /api/render?passes=``: the preview PNG
+        after ``passes`` more passes, in base64, and the pass count."""
+        png = self.render_png(preview=True, passes=passes)
+        with span("rtt.png"):
+            return _reply({"png": base64.b64encode(png).decode(), "iterations": self._count})
+
     # -- rendering -----------------------------------------------------
     def render_png(self, preview: bool = True, passes: int = 1) -> bytes:
         import ray_tracing_tpu_torch.v4ray as v4ray
@@ -266,16 +306,23 @@ class EditorSession:
             self._accum = np.zeros((param.height, param.width, 3), np.float32)
             self._count = 0
         for _ in range(passes):
-            img = self._renderer._inner.render(self._count).cpu().numpy()
+            img = self._renderer._inner.render(self._count)
+            with sync("web.to_host"):
+                img = img.cpu().numpy()
             self._accum += img
             self._count += 1
-        mean = self._accum / max(self._count, 1)
-        u8 = (np.sqrt(np.clip(mean, 0.0, 1.0)) * 255).astype(np.uint8)
-        return encode_png(u8)
+        with span("rtt.png"):
+            mean = self._accum / max(self._count, 1)
+            u8 = (np.sqrt(np.clip(mean, 0.0, 1.0)) * 255).astype(np.uint8)
+            return encode_png(u8)
 
 
 def _prop_defaults(plugin):
     return plugin.properties()
+
+
+def _reply(obj) -> bytes:
+    return json.dumps(obj).encode()
 
 
 _PAGE = """<!DOCTYPE html>
@@ -554,7 +601,9 @@ class _Handler(BaseHTTPRequestHandler):
         pass
 
     def _json(self, obj, code=200):
-        data = json.dumps(obj).encode()
+        self._send(_reply(obj), code)
+
+    def _send(self, data: bytes, code=200):
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(data)))
@@ -573,17 +622,13 @@ class _Handler(BaseHTTPRequestHandler):
                 self.wfile.write(data)
             elif url.path == "/api/state":
                 with self.session.lock:
-                    self._json(self.session.state_json())
+                    self._send(self.session.state_reply())
             elif url.path == "/api/registries":
                 self._json(_registries_meta())
             elif url.path == "/api/render":
                 passes = int(parse_qs(url.query).get("passes", ["1"])[0])
                 with self.session.lock:
-                    png = self.session.render_png(preview=True, passes=passes)
-                    self._json({
-                        "png": base64.b64encode(png).decode(),
-                        "iterations": self.session._count,
-                    })
+                    self._send(self.session.render_reply(passes))
             elif url.path == "/api/project":
                 with self.session.lock:
                     self._json(document_to_json(self.session.tree.document))
@@ -597,18 +642,11 @@ class _Handler(BaseHTTPRequestHandler):
             length = int(self.headers.get("Content-Length", 0))
             body = json.loads(self.rfile.read(length) or b"{}")
             with self.session.lock:
-                if self.path == "/api/edit":
-                    self.session.apply_edit(body)
-                elif self.path == "/api/undo":
-                    self.session.tree.undo()
-                    self.session._invalidate_render()
-                elif self.path == "/api/redo":
-                    self.session.tree.redo()
-                    self.session._invalidate_render()
-                else:
+                data = self.session.post(self.path, body)
+                if data is None:
                     self._json({"error": "not found"}, 404)
                     return
-                self._json(self.session.state_json())
+                self._send(data)
         except Exception as e:
             self._json({"error": f"{type(e).__name__}: {e}"}, 500)
 

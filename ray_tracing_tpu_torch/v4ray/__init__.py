@@ -39,6 +39,7 @@ from ray_tracing_tpu_torch.models.compiler import SceneBuilder
 from ray_tracing_tpu_torch.ops import rng
 from ray_tracing_tpu_torch.render.renderer import Renderer as _Renderer
 from ray_tracing_tpu_torch.render.renderer import RendererParam as _RendererParam
+from ray_tracing_tpu_torch.utils.profiling import span
 
 from ray_tracing_tpu_torch.v4ray import material, shape, texture
 from ray_tracing_tpu_torch.v4ray.core import AABB, HitRecord, Ray
@@ -152,12 +153,15 @@ def resolve_device(device) -> torch.device:
 class Renderer:
     """reference src/renderer.rs:430-477 (PyRenderer): async ``render()``
     returning one (h, w, 3) float32 linear-radiance pass, rendered on
-    ``device``."""
+    ``device``.  Its construction, the scene's compile and its tables'
+    upload to the device, is one ``rtt.compile`` span."""
 
     def __init__(self, param: RendererParam, camera, scene: Scene, *, device="cuda"):
         if not isinstance(camera, _CameraParam):
             camera = PerspectiveCameraParam(**camera.__dict__)
-        self._inner = _Renderer(param, camera, scene.compile(), device=resolve_device(device))
+        with span("rtt.compile"):
+            self._inner = _Renderer(param, camera, scene.compile(),
+                                    device=resolve_device(device))
         self._iteration = 0
 
     def render(self):

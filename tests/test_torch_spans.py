@@ -1,9 +1,11 @@
 """The port's spans (ray_tracing_tpu_torch/utils/profiling.py) on the CPU:
-which spans a render pass and a tiled gradient emit under
-``torch.profiler``, and how they nest; that no span is recorded, and no
-record function entered, without a profiler; and that the profiler
-changes no bit of an image or a gradient."""
+which spans a render pass, a tiled gradient and the web editor's edit
+and preview emit under ``torch.profiler``, and how they nest; that no
+span is recorded, and no record function entered, without a profiler;
+and that the profiler changes no bit of an image or a gradient."""
 
+import base64
+import json
 import os
 
 import numpy as np
@@ -168,3 +170,54 @@ def test_profiler_changes_no_bits(renderers):
     assert spans and torch.equal(loss, loss_t)
     for a, b in zip(grads, grads_t):
         assert torch.equal(a, b)
+
+
+EDITOR_SPANS = ("rtt.edit", "rtt.state", "rtt.generate", "rtt.compile", "rtt.png",
+                "rtt.sync.web.to_host")
+
+
+def _editor_round():
+    """An editor session on its default document (device="cpu") and one
+    round of its handlers' work: an edit and the state's reply, a
+    preview and its reply, an undo and the state's reply."""
+    from ray_tracing_tpu_torch.editor.web import EditorSession
+
+    session = EditorSession(device="cpu")
+    key = next(k for k, o in session.tree.document.objects.items() if o.name == "sphere")
+
+    def round_():
+        edit = session.post("/api/edit", {"action": "set_shape", "key": str(key),
+                                          "kind": "sphere", "values": [0.1, 0.5, 0.0, 0.5]})
+        preview = session.render_reply(1)
+        undo = session.post("/api/undo", {})
+        return edit, preview, undo
+
+    return round_
+
+
+def test_editor_spans_in_order():
+    """The edit and its state reply (``rtt.edit``, ``rtt.state``), the
+    preview's ``rtt.generate`` and ``rtt.compile``, its pass's tiles, its
+    host copy (``rtt.sync.web.to_host``) and its PNG (``rtt.png`` twice:
+    tone map and encode, then base64 and JSON), then the undo and its
+    state reply, each apart from the others."""
+    (edit, preview, undo), spans = _spans(_editor_round())
+    assert json.loads(edit)["can_undo"] and not json.loads(undo)["can_undo"]
+    assert base64.b64decode(json.loads(preview)["png"])[:4] == b"\x89PNG"
+    mine = [sp for sp in spans if sp[0] in EDITOR_SPANS]
+    assert [sp[0] for sp in mine] == [
+        "rtt.edit", "rtt.state", "rtt.generate", "rtt.compile", "rtt.sync.web.to_host",
+        "rtt.png", "rtt.png", "rtt.edit", "rtt.state"]
+    for a, b in zip(mine, mine[1:]):
+        assert a[2] <= b[1], (a, b)
+    tiles = [sp for sp in spans if sp[0] == "rtt.tile"]  # the CPU's tiles of 96x72
+    assert tiles and all(mine[3][2] <= t[1] and t[2] <= mine[4][1] for t in tiles)
+
+
+def test_editor_no_profiler_no_record_function(monkeypatch):
+    """Without a profiler the editor's round enters no record function."""
+    round_ = _editor_round()
+    monkeypatch.setattr(profiling, "_RecordFunction", _Refused)
+    round_()
+    with pytest.raises(AssertionError, match="record function entered"):
+        _spans(round_)
