@@ -6,7 +6,7 @@ The targets come from the autograd surface
 (``prb_scalar.prb_radiance_all``) at the true parameters under four
 known keys; each step replays one target's key through the direct
 backward (``prb_loss_and_grad_all``: one taped traversal for the forward
-and the color-linear gradients, forward-mode tangents for fuzz and IR)
+and the color-linear gradients, a reverse-mode replay for fuzz and IR)
 and takes a ``torch.optim.Adam`` step, the parameters then clipped to
 their physical boxes.  The emitter's color row stays pinned.
 

@@ -170,13 +170,28 @@ def run_stage(bounce_fn, bounces: int, carry, live: int):
     ``carry`` holds per-ray tensors (leading dim n) with ``alive`` at
     index 4, and 0-d tensors, which pass through whole;
     ``bounce_fn(b, part)`` bounces the prefix at the stage's bounce b.
-    Returns the updated carry."""
+    Returns the updated carry.
+
+    The prefix is written back in place, unless the stage's state
+    requires grad (the fuzz / IR replay of render/prb_scalar.py): there
+    the prefix's graph holds views of the full-width tensors, which an
+    in-place write would invalidate, so the full width is rebuilt out of
+    place from the prefix and the untouched rows."""
     part = tuple(x[:live] if x.dim() else x for x in carry)
     out = bounded_bounce_loop(bounces, bounce_fn, part, lambda c: c[4])
+    out_of_place = any(x.requires_grad for x in out)
+    merged = []
     for full, before, after in zip(carry, part, out):
-        if full.dim() and after is not before:
+        if not full.dim():
+            merged.append(after)
+        elif after is before:
+            merged.append(full)
+        elif out_of_place:
+            merged.append(torch.cat([after, full[live:]]))
+        else:
             full[:live] = after
-    return tuple(full if full.dim() else after for full, after in zip(carry, out))
+            merged.append(full)
+    return tuple(merged)
 
 
 def trace_stages(scene: SceneData, key, max_depth: int, carry, *, count_segments: bool,
@@ -221,15 +236,16 @@ def trace_stages(scene: SceneData, key, max_depth: int, carry, *, count_segments
 def trace_subset_dot(scene: SceneData, ro, rd, key, max_depth: int, g, alive0, ids0):
     """``vdot(g, radiance)`` of a gathered ray subset, compacted.
 
-    The scalar-tangent pass (render/prb_scalar.py) needs the tangent of
+    The fuzz / IR pass (render/prb_scalar.py) needs the gradient of
     this one scalar only, so this is the minimal compacted trace
     (:func:`trace_stages`), with uniforms keyed by the absolute ``ids0``
     so the gathered subset replays its paths bit-exactly.  Rays with
     ``alive0`` unset accumulate nothing.  The final dot
     gathers ``g`` by each ray's tracked input position.  Every operation
-    takes forward-mode tangents (``torch.autograd.forward_ad``).  The dot
-    sums in float64, so its value (and tangent) does not depend on the
-    order of the rays (the dense replay sums them in input order)."""
+    is differentiable by reverse-mode autograd (the stage writes go out
+    of place while the state requires grad, :func:`run_stage`).  The dot
+    sums in float64, so its value does not depend on the order of the
+    rays (the dense replay sums them in input order)."""
     rad, thr, ro, rd, _, _, segments = _initial_carry(ro, rd, 0)
     carry = (rad, thr, ro, rd, alive0, ids0.to(torch.int64), segments)
     (rad, thr, _, _, alive, _, _), pos = trace_stages(

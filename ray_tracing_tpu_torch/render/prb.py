@@ -24,8 +24,8 @@ three accumulators are views of one (P + T + M, 3) table laid out
 per tile: kernel K2 (ops/cuda_scatter.py) on the card, which adds the
 contributions to each table row in row order without float atomics, so
 every color-linear gradient repeats bit for bit and equals the CPU's.
-The fuzz and IR gradients come from forward-mode tangents
-(render/prb_scalar.py).
+The fuzz and IR gradients come from a reverse-mode replay of the rays
+that reach a metal or a dielectric (render/prb_scalar.py).
 
 :func:`prb_grad_dense` replays the dense bounce loop with the tape
 writer and sweeps its tape, the color-linear backward of the dense

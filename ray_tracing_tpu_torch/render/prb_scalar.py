@@ -1,4 +1,4 @@
-"""Full-parameter gradients: forward-mode tangents for the scalar
+"""Full-parameter gradients: reverse-mode replays for the scalar
 material parameters, the PyTorch counterpart of
 ``ray_tracing_tpu/render/prb_scalar.py``.
 
@@ -7,21 +7,25 @@ get exact gradients from the PRB tape sweep (render/prb_tape.py).  Metal
 fuzz and dielectric refraction index (reference metal.rs:31-46,
 dielectric.rs:39-50) bend the scattered direction instead of scaling
 the throughput, so their derivative flows through every later
-intersection and no linearity trick applies.  They take forward-mode AD
-(``torch.autograd.forward_ad``): one tangent per active material row,
-pushed through a compacted re-trace of only the rays whose paths reach
-a metal or a dielectric (exactly zero derivative otherwise).  Uniforms
-are keyed by (ray id, bounce), so a gathered subset replays its paths
+intersection and no linearity trick applies.  Their gradient is that of
+one scalar, ``vdot(g, rad)``, in a few active material rows: the rays
+whose paths reach a metal or a dielectric (exactly zero derivative
+otherwise) are gathered in batches, and each batch takes one compacted
+replay under reverse-mode autograd with the active fuzz and IR rows as
+leaves, and one backward.  (The JAX package takes forward-mode tangents,
+one per row, since reverse mode cannot pass its ``while_loop`` of
+dynamic trip count; eager PyTorch has no such limit.)  Uniforms are
+keyed by (ray id, bounce), so a gathered subset replays its paths
 bit-exactly.  The dielectric's stochastic reflect/refract branch is held
 fixed under differentiation, as reverse-mode AD of the dense loop does.
 
 ``prb_loss_and_grad_all`` is the direct entry point: the loss value and
-all five gradients from one taped traversal plus the tangent batches,
+all five gradients from one taped traversal plus the replay batches,
 with a ``defer_scalars`` protocol so that a caller tracing tiles runs
 one global :func:`scalar_tangent_pass`.  ``prb_radiance_all`` is the
 autograd surface: a ``torch.autograd.Function`` whose forward traces
 (saving only its inputs and the radiance) and whose backward replays
-the paths with the tape writer, sweeps the tapes and runs the tangent
+the paths with the tape writer, sweeps the tapes and runs the fuzz / IR
 pass, so any loss of the radiance takes ``loss.backward()``.
 """
 
@@ -32,7 +36,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.autograd.forward_ad as fwAD
 
 from ray_tracing_tpu_torch.models.scene import MAT_DIELECTRIC, MAT_METAL, SceneData
 from ray_tracing_tpu_torch.render.integrator import trace, trace_compacted, trace_subset_dot
@@ -90,72 +93,78 @@ def _active_rows(scene: SceneData, scalar_rows=None):
     return np.nonzero(mtype == MAT_METAL)[0], np.nonzero(mtype == MAT_DIELECTRIC)[0]
 
 
-def _tangent_batches(scene_of, theta0, mask, ro, rd, key, max_depth: int, g, *,
+def _tangent_batches(scene_of, thetas, mask, ro, rd, key, max_depth: int, g, *,
                      tangent_cap, ids_base, compaction: bool = True):
-    """d(vdot(g, rad)) / d(theta) over the rays where ``mask`` is set.
+    """d(vdot(g, rad)) / d(theta) for each tensor of ``thetas``, over the
+    rays where ``mask`` is set; ``scene_of(*thetas)`` builds the scene.
 
     The masked rays are gathered in input order into batches of at most
-    ``tangent_cap`` rays (default max(256, n/8)), and each batch takes
-    one forward-mode re-trace per entry of ``theta`` (one tangent per
-    active material row): the compacted subset trace, or with
-    ``compaction=False`` the dense replay of the subset.  Rays outside
-    the mask have an exactly-zero derivative and are never traced."""
+    ``tangent_cap`` rays (default max(256, n/8)).  Each batch takes one
+    replay under reverse-mode autograd, one ``rtt.tangent_replay`` span,
+    with every theta a leaf that requires grad: the compacted subset
+    trace, or with ``compaction=False`` the dense replay of the subset;
+    one backward gives every leaf's gradient, and the batch's graph is
+    freed before the next.  Rays outside the mask have an exactly-zero
+    derivative and are never traced.  Returns one gradient per theta."""
     n = ro.shape[0]
     cap = min(n, tangent_cap or max(256, n // 8))
     with sync("prb_scalar.touched"):
         touched = torch.nonzero(mask).squeeze(1)
     rog = torch.cat([ro, rd, g], dim=1)  # one gather per batch
-    gtheta = torch.zeros_like(theta0)
-    eye = torch.eye(theta0.shape[0], dtype=theta0.dtype, device=theta0.device)
+    grads = [torch.zeros_like(theta) for theta in thetas]
     for start in range(0, touched.shape[0], cap):
-        sub = touched[start:start + cap]
-        row = rog[sub]
-        ro_s, rd_s, g_s = row[:, 0:3], row[:, 3:6], row[:, 6:9]
-        alive_s = torch.ones_like(sub, dtype=torch.bool)
-        for j in range(theta0.shape[0]):
-            with fwAD.dual_level():
-                theta = fwAD.make_dual(theta0, eye[j])
-                if compaction:
-                    val = trace_subset_dot(scene_of(theta), ro_s, rd_s, key, max_depth,
-                                           g_s, alive_s, ids_base + sub)
-                else:
-                    rad = prb_grad_dense(scene_of(theta), ro_s, rd_s, key, max_depth, None,
-                                         g_s, alive0=alive_s, ids0=ids_base + sub,
-                                         accumulate=False)[1]
-                    val = (g_s * rad).sum(dtype=torch.float64)
-                tangent = fwAD.unpack_dual(val).tangent
-            if tangent is not None:
-                gtheta[j] += tangent
-    return gtheta
+        with span("rtt.tangent_replay"), torch.enable_grad():
+            sub = touched[start:start + cap]
+            row = rog[sub]
+            ro_s, rd_s, g_s = row[:, 0:3], row[:, 3:6], row[:, 6:9]
+            alive_s = torch.ones_like(sub, dtype=torch.bool)
+            leaves = [theta.detach().requires_grad_(True) for theta in thetas]
+            s = scene_of(*leaves)
+            if compaction:
+                val = trace_subset_dot(s, ro_s, rd_s, key, max_depth, g_s, alive_s,
+                                       ids_base + sub)
+            else:
+                rad = prb_grad_dense(s, ro_s, rd_s, key, max_depth, None, g_s, alive0=alive_s,
+                                     ids0=ids_base + sub, accumulate=False)[1]
+                val = (g_s * rad).sum(dtype=torch.float64)
+            if val.requires_grad:  # not at depth 1: no scattered direction is traced
+                for acc, part in zip(grads, torch.autograd.grad(val, leaves)):
+                    acc += part
+    return grads
 
 
 @torch.no_grad()
 def _scalar_tangent_pass(p: AllParams, sc: SceneData, ro, rd, key, max_depth: int, g,
                          touched, *, tangent_cap=None, ids_base=0, compaction: bool = True,
                          scalar_rows=None):
-    """Scalar tangents of the scene's active material rows on the touched
-    subset only.  ``touched`` is the tape's bitmask (1: the path reached
-    a metal, 2: a dielectric); each family batches over its own rays.
-    Returns (gfuzz (M,), gir (M,))."""
+    """Fuzz and IR gradients of the scene's active material rows on the
+    touched subset only.  ``touched`` is the tape's bitmask (1: the path
+    reached a metal, 2: a dielectric); the rays that reached an active
+    family are batched once, and each batch's one replay carries both
+    families' rows as leaves.  Returns (gfuzz (M,), gir (M,))."""
     with span("rtt.tangent_pass"):
-        gfuzz = torch.zeros_like(p.fuzz)
-        gir = torch.zeros_like(p.ir)
-        common = dict(tangent_cap=tangent_cap, ids_base=ids_base, compaction=compaction)
-        fuzz_rows_j, ir_rows_j = _active_rows(sc, scalar_rows)
-        for name, rows_j, bit, grad in (("fuzz", fuzz_rows_j, 1, gfuzz),
-                                        ("ir", ir_rows_j, 2, gir)):
-            if not len(rows_j):
-                continue
-            base = getattr(p, name).detach()
-            with sync("prb_scalar.rows"):  # a copy to the device that waits on it
-                rows = torch.as_tensor(rows_j, device=base.device)
+        p = AllParams(*(x.detach() for x in p))
+        gfuzz, gir = torch.zeros_like(p.fuzz), torch.zeros_like(p.ir)
+        active, bits = [], 0  # (name, rows on the device, its gradient)
+        for name, rows_j, bit, grad in zip(("fuzz", "ir"), _active_rows(sc, scalar_rows), (1, 2),
+                                           (gfuzz, gir)):
+            if len(rows_j):
+                with sync("prb_scalar.rows"):  # a copy to the device that waits on it
+                    active.append((name, torch.as_tensor(rows_j, device=grad.device), grad))
+                bits |= bit
+        if active:
 
-            def scene_of(theta, _name=name, _base=base, _rows=rows):
-                return _with_all(sc, p._replace(**{_name: _base.index_copy(0, _rows, theta)}))
+            def scene_of(*thetas):
+                return _with_all(sc, p._replace(**{
+                    name: getattr(p, name).index_copy(0, rows, theta)
+                    for (name, rows, _), theta in zip(active, thetas)}))
 
-            grad[rows] = _tangent_batches(
-                scene_of, base[rows], (touched & bit) != 0, ro, rd, key, max_depth, g, **common
-            )
+            parts = _tangent_batches(
+                scene_of, [getattr(p, name)[rows] for name, rows, _ in active],
+                (touched & bits) != 0, ro, rd, key, max_depth, g, tangent_cap=tangent_cap,
+                ids_base=ids_base, compaction=compaction)
+            for (_, rows, grad), part in zip(active, parts):
+                grad[rows] = part
         return gfuzz, gir
 
 
@@ -288,7 +297,8 @@ def prb_loss_and_grad_all(loss_fn, params: AllParams, scene: SceneData, ro, rd, 
     trace_compacted and the backward half re-traces with the tape writer;
     with ``compaction=False`` the forward is the dense trace and the
     backward its dense replay (prb.prb_grad_dense).  Fuzz / IR come from
-    the forward-mode tangent pass.  Returns ``(loss, grads: AllParams)``;
+    the reverse-mode replay of the touched rays (:func:`scalar_tangent_pass`).
+    Returns ``(loss, grads: AllParams)``;
     every branch equals ``loss_fn(prb_radiance_all(...)).backward()``.
 
     ``ids_base`` offsets the per-ray RNG ids, so tiles traced under one
@@ -331,8 +341,8 @@ def scalar_tangent_pass(params: AllParams, scene: SceneData, ro, rd, key, max_de
     tensors may be the concatenation of tiles traced under one key with
     ``ids_base`` offsets (pass the whole wavefront's base, normally 0).
     ``compaction=False`` differentiates the dense replay of each batch
-    (under ``torch.autograd.forward_ad``, the masked subset with its
-    original ids) in place of the compacted subset trace."""
+    (the masked subset with its original ids) in place of the compacted
+    subset trace."""
     return _scalar_tangent_pass(params, scene, ro, rd, key, max_depth, g, touched,
                                 tangent_cap=tangent_cap, ids_base=ids_base,
                                 compaction=compaction, scalar_rows=scalar_rows)

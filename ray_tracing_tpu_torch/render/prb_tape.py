@@ -85,7 +85,7 @@ class _TapeWriter:
         self.dense = dense
         self.rows = _empty_rows(max_depth, n, device)
         # bit 0: the path reached a metal, bit 1: a dielectric, in input
-        # order; the scalar tangent pass batches each family over its rays
+        # order; the fuzz / IR pass replays the rays of the active families
         self.touched = torch.zeros((n,), dtype=torch.int32, device=device)
         self.stage_ids, self.alive_counts = [], []
 

@@ -242,8 +242,8 @@ def test_scene_json_gradient_on_card_matches_cpu(cuda, scene_json):
     """data/scene.json at 64x64 depth 6: the loss and all five leaves on
     the card against the port's CPU run at the same key, held to the
     card's own noise floor as above; K2, K3 and K5 launched on the card;
-    a second card run at the same key repeats the loss and the
-    color-linear leaves bit for bit."""
+    a second card run at the same key repeats the loss and all five
+    leaves bit for bit (the fuzz / IR replay's backward included)."""
     leaves = ("color", "images", "metal_albedo", "fuzz", "ir")
     run = _card_and_cpu_grads(scene_json, cuda, 64, 6, leaves)
     on_cpu, k_cpu = run("cpu", 4)
@@ -252,7 +252,7 @@ def test_scene_json_gradient_on_card_matches_cpu(cuda, scene_json):
     other, _ = run(cuda, 5)
     assert k_cpu == (0, 0, 0, 0) and k_card[1] == 1 and k_card[2] > 0 and k_card[3] > 0
     _inside_noise_floor(("loss",) + leaves, on_card, on_cpu, other)
-    for name, a, b in zip(("loss",) + leaves[:3], on_card, again):
+    for name, a, b in zip(("loss",) + leaves, on_card, again):
         assert torch.equal(a, b), name
 
 

@@ -1,5 +1,5 @@
 """The port's full-parameter gradient pass (taped PRB for the color-linear
-parameters, forward-mode tangents for fuzz and IR) against the JAX
+parameters, a reverse-mode replay for fuzz and IR) against the JAX
 package's and against torch autograd of the port's dense trace, on the
 small scenes of the JAX package's own PRB tests, with rays made by
 numpy from a seed."""
@@ -187,7 +187,7 @@ def test_sweep_matches_autograd(textured):
 
 
 def test_fuzz_ir_match_autograd(cornell):
-    """Forward-mode fuzz and IR gradients of the compacted subset trace
+    """Fuzz and IR gradients of the compacted subset replay
     against reverse autograd of the dense trace (tests/test_prb_scalar.py
     test_all_params_dense_matches_ad_exactly)."""
     ro, rd = _rays(2048, 3)
@@ -330,8 +330,8 @@ def test_tangent_batches_exact_when_cap_does_not_divide_count(cornell):
         return _with_all(cornell, params._replace(fuzz=params.fuzz.index_copy(0, metal, theta)))
 
     def run(cap):
-        return _tangent_batches(scene_of, params.fuzz[metal], mask, ro, rd, key, 5, g,
-                                tangent_cap=cap, ids_base=0)
+        return _tangent_batches(scene_of, [params.fuzz[metal]], mask, ro, rd, key, 5, g,
+                                tangent_cap=cap, ids_base=0)[0]
 
     ref = run(24)
     assert float(ref.abs().sum()) > 1e-6, "rays must touch"
