@@ -7,10 +7,10 @@ Metric: traced segments per second of one 1-spp differentiable pass at
 every differentiable scene parameter (solid colors, image texels, metal
 albedo, metal fuzz, dielectric IR), at the scene's own max_depth (20),
 on the card.  One pass is ``bench.py``'s protocol, run by the library's
-own call (``parallel/mesh.py:tiled_loss_and_grad``): tiles of 65,536
+own call (``render/prb_scalar.py:tiled_loss_and_grad``): tiles of 65,536
 rays (``render/prb.py:TILE_SIZE``) under one trace key with ``ids_base``,
-``prb_loss_and_grad_all(..., defer_scalars=True)`` per tile, one global
-``scalar_tangent_pass`` (tangent_cap 65,536); the loss is the summed
+per tile the taped forward and its sweep, one global
+``scalar_tangent_pass`` in batches of the tile; the loss is the summed
 tile losses over n * 3, every gradient scaled by the same factor.  On
 the card phase A runs K1 and each tile's sweep one K2 call.
 
@@ -80,7 +80,7 @@ def fwd_bwd(params, scene, ro, rd, k_trace, depth: int, tile: int, scalar_rows=N
     stage).  Returns (loss, AllParams)."""
     import torch
 
-    from ray_tracing_tpu_torch.parallel.mesh import tiled_loss_and_grad
+    from ray_tracing_tpu_torch.render.prb_scalar import tiled_loss_and_grad
 
     scale = 1.0 / (ro.shape[0] * 3)
     return tiled_loss_and_grad(lambda rad, rows: torch.sum(rad) * scale, params, scene, ro, rd,

@@ -26,9 +26,9 @@ Phases (any failure raises and exits non-zero):
      tape sweep into the table [gimg | gcol | gmet] (each stage, and the
      three stages in one call) and 288,164 rows all live;
   7. the gradient path: zy at 1024x1024 depth GRAD_DEPTH, params_of ->
-     16 tiles of 65,536 rays under one trace key with ids_base,
-     prb_loss_and_grad_all(torch.sum, defer_scalars=True) per tile, one
-     global scalar_tangent_pass; loss = image mean.  All five gradient
+     tiled_loss_and_grad in 16 tiles of 65,536 rays under one trace key
+     with ids_base (per tile the taped forward and its sweep), one global
+     scalar_tangent_pass; loss = image mean.  All five gradient
      leaves finite and nonzero, K1 and K2 launched, the loss equal to the
      mean of the image render_pass draws (the renderer's own entry, rtol
      1e-5), the color gradient against a central difference of that mean
@@ -147,7 +147,7 @@ Phases (any failure raises and exits non-zero):
      own key (lr TRAIN_LR): one step on every leaf, finite, K1 launched
      and K2 for one sweep scatter per tile (the card's tile: the whole
      image), equal to params - lr g with g from
-     prb_loss_and_grad_all called tile by tile by hand (the color-linear
+     tiled_loss_and_grad called directly at the step's tile (the color-linear
      leaves torch.equal, fuzz and IR to rtol 1e-4), and the loss change
      its color-linear and its whole update make; a witness of the fuzz
      and IR gradients (scalar_witness): the per-pixel derivatives of
@@ -585,14 +585,14 @@ def motion_rays(n: int, seed: int):
 
 
 def grad_pass(params, scene, ro, rd, k_trace, tile_loss, depth: int = DEPTH, tile: int = TILE):
-    """One full-parameter fwd+bwd pass by the library's tiled protocol
-    (parallel/mesh.py:tiled_loss_and_grad, bench.py:172-231's): tiles
-    under one trace key with ids_base, prb_loss_and_grad_all(...,
-    defer_scalars=True) per tile, one global scalar_tangent_pass.  The
-    loss is the summed per-tile losses over n*3, so every gradient is
-    scaled by 1/(n*3).  ``tile_loss(rad, rows)`` is the loss of the
-    tile's rows.  Returns (loss tensor, AllParams)."""
-    from ray_tracing_tpu_torch.parallel.mesh import tiled_loss_and_grad
+    """One full-parameter fwd+bwd pass by the port's gradient route
+    (render/prb_scalar.py:tiled_loss_and_grad, bench.py:172-231's
+    protocol): tiles under one trace key with ids_base, per tile the taped
+    forward and its sweep, one global scalar_tangent_pass.  The loss is
+    the summed per-tile losses over n*3, so every gradient is scaled by
+    1/(n*3).  ``tile_loss(rad, rows)`` is the loss of the tile's rows.
+    Returns (loss tensor, AllParams)."""
+    from ray_tracing_tpu_torch.render.prb_scalar import tiled_loss_and_grad
 
     scale = 1.0 / (ro.shape[0] * 3)
     return tiled_loss_and_grad(lambda rad, rows: tile_loss(rad, rows) * scale, params, scene,
@@ -610,7 +610,7 @@ def split_pass(params, scene, ro, rd, k_trace, depth: int = DEPTH, tile: int = T
     ev = lambda: torch.cuda.Event(enable_timing=True)
     s = _with_all(scene, params)
     n = ro.shape[0]
-    fwd, sweep, rads, touches = [], [], [], []
+    fwd, sweep, touches = [], [], []
     for start in range(0, n, tile):
         rows = slice(start, min(start + tile, n))
         e0, e1, e2 = ev(), ev(), ev()
@@ -621,13 +621,11 @@ def split_pass(params, scene, ro, rd, k_trace, depth: int = DEPTH, tile: int = T
         e2.record()
         fwd.append((e0, e1))
         sweep.append((e1, e2))
-        rads.append(rad)
         touches.append(touched)
     e3, e4 = ev(), ev()
     e3.record()
-    rad = torch.cat(rads)
-    scalar_tangent_pass(params, scene, ro, rd, k_trace, depth, rad, torch.ones_like(rad),
-                        torch.cat(touches), tangent_cap=65536)
+    scalar_tangent_pass(params, scene, ro, rd, k_trace, depth, torch.ones_like(ro),
+                        torch.cat(touches), tile_size=tile)
     e4.record()
     torch.cuda.synchronize()
     total = lambda pairs: sum(a.elapsed_time(b) for a, b in pairs)
@@ -643,6 +641,21 @@ def image_mean(scene, camera, key, size: int = SIZE, depth: int = DEPTH) -> floa
     img = render_pass(scene, camera, key, width=size, height=size, max_depth=depth,
                       antialias=True, tile_size=TILE)
     return float(img.double().sum()) / img.numel()
+
+
+def dense_pass(renderer, key):
+    """(image, traced segments) of ``renderer``'s pass at ``key`` by the
+    dense loop integrator.trace, over the pass's own camera rays and ray
+    ids in one call: what the compacted renderer must equal bit for bit."""
+    from ray_tracing_tpu_torch.models.camera import camera_rays, stamp_shutter
+    from ray_tracing_tpu_torch.render.integrator import trace
+
+    p = renderer.param
+    ro, rd, _, k_trace = camera_rays(renderer.camera, renderer._as_key(key), p.width, p.height,
+                                     renderer.antialias)
+    rad, segments = trace(stamp_shutter(renderer.scene, renderer.camera), ro, rd, k_trace,
+                          renderer.max_depth, with_stats=True)
+    return rad.reshape(p.height, p.width, 3), int(segments)
 
 
 def traced_segments(scene, ro, rd, k_trace, depth: int = DEPTH) -> int:
@@ -1085,8 +1098,7 @@ def scene_json_phases(smi: str) -> dict:
     small = RendererParam(128, 128, max_depth=SJ_DEPTH)
     small_renderer = Renderer(small, bundle.camera, bundle.scene, device="cuda")
     img_c, seg_c = small_renderer.render_with_stats(7)
-    img_d, seg_d = Renderer(small, bundle.camera, bundle.scene, device="cuda",
-                            compaction=False).render_with_stats(7)
+    img_d, seg_d = dense_pass(small_renderer, 7)
     check(torch.equal(img_c, img_d) and seg_c == seg_d, "scene.json compacted equals dense")
     print(f"[12] 128^2 depth {SJ_DEPTH}: compacted == dense (torch.equal), {seg_c} segments each")
     tiny = RendererParam(32, 32, max_depth=1)
@@ -1795,8 +1807,7 @@ def motion_phases(smi: str) -> dict:
     small = RendererParam(128, 128, max_depth=MB_DEPTH)
     small_renderer = Renderer(small, cam_param, host_scene, device="cuda")
     img_c, seg_c = small_renderer.render_with_stats(7)
-    img_d, seg_d = Renderer(small, cam_param, host_scene, device="cuda",
-                            compaction=False).render_with_stats(7)
+    img_d, seg_d = dense_pass(small_renderer, 7)
     check(torch.equal(img_c, img_d) and seg_c == seg_d, "motion compacted equals dense")
     print(f"[18] 128^2 depth {MB_DEPTH}: compacted == dense (torch.equal), {seg_c} segments each")
     tiny = RendererParam(32, 32, max_depth=1)
@@ -2374,15 +2385,13 @@ def train_phases(smi: str, size: int = SIZE, depth: int = DEPTH, dev: str = "cud
         make_mesh,
         make_prb_train_step_all,
         make_prb_train_step_all_direct,
-        tiled_loss_and_grad,
     )
     from ray_tracing_tpu_torch.render.prb_scalar import (
         AllParams,
         _with_all,
         params_of,
-        prb_loss_and_grad_all,
         prb_radiance_all,
-        scalar_tangent_pass,
+        tiled_loss_and_grad,
     )
     from ray_tracing_tpu_torch.render.renderer import render_pass, tile_rule
 
@@ -2419,21 +2428,10 @@ def train_phases(smi: str, size: int = SIZE, depth: int = DEPTH, dev: str = "cud
     check(bool(torch.isfinite(loss1)), "the step's loss is finite")
     check(launches["k1"] > 0 and sweeps[0] == tiles and launches["k2"] >= tiles,
           "step 1 launched K1, and K2 for one sweep scatter per tile")
-    t_flat, weight = target.reshape(n, 3), torch.ones((n,), device=ro.device)
-    grads, rads, cots, touches = None, [], [], []
-    for start in range(0, n, tile):
-        rows = slice(start, min(start + tile, n))
-        _, g_t, (rad, cot, touched) = prb_loss_and_grad_all(
-            lambda r, _rows=rows: torch.sum(weight[_rows, None] * (r - t_flat[_rows]) ** 2)
-            / (n * 3), fit, scene, ro[rows], rd[rows], k_trace, depth, ids_base=start,
-            defer_scalars=True)
-        grads = g_t if grads is None else AllParams(*(a + b for a, b in zip(grads, g_t)))
-        rads.append(rad)
-        cots.append(cot)
-        touches.append(touched)
-    gfuzz, gir = scalar_tangent_pass(fit, scene, ro, rd, k_trace, depth, torch.cat(rads),
-                                     torch.cat(cots), torch.cat(touches), tangent_cap=tile)
-    direct = grads._replace(fuzz=gfuzz, ir=gir)
+    t_flat = target.reshape(n, 3)
+    _, direct = tiled_loss_and_grad(
+        lambda r, rows: torch.sum((r - t_flat[rows]) ** 2) / (n * 3), fit, scene, ro, rd,
+        k_trace, depth, tile_size=tile)
     by_hand = AllParams(*(p - TRAIN_LR * g for p, g in zip(fit, direct)))
     leaves_report("28", "step 1 against params - lr g by hand", first, by_hand, 1e-4)
 
@@ -3806,9 +3804,9 @@ def main() -> int:
 
     # 4. compaction equals the dense loop; the card agrees with the CPU
     small = RendererParam(256, 256, max_depth=20)
-    img_c, seg_c = Renderer(small, bundle.camera, bundle.scene, device="cuda").render_with_stats(7)
-    img_d, seg_d = Renderer(small, bundle.camera, bundle.scene, device="cuda",
-                            compaction=False).render_with_stats(7)
+    small_renderer = Renderer(small, bundle.camera, bundle.scene, device="cuda")
+    img_c, seg_c = small_renderer.render_with_stats(7)
+    img_d, seg_d = dense_pass(small_renderer, 7)
     check(torch.equal(img_c, img_d) and seg_c == seg_d, "trace_compacted equals trace at 256^2")
     print(f"[4] 256^2 depth 20: compacted == dense (torch.equal), {seg_c} segments each")
     tiny = RendererParam(64, 64, max_depth=1)

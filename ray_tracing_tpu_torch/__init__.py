@@ -8,9 +8,10 @@ triangle sweep (ops/cuda_triangles.py) and the atlas-gradient
 scatter-add (ops/cuda_scatter.py) run as hand-written CUDA kernels.  The
 port covers the forward render of scenes of spheres, moving spheres,
 rects, triangle meshes, instancing transforms and constant media, and
-the full-parameter gradient pass (render/prb_scalar.py: ``params_of`` ->
-``prb_loss_and_grad_all`` -> ``scalar_tangent_pass``) of the same
-scenes, meshes, transforms and media included, and its autograd face
+the full-parameter gradient pass of the same scenes, meshes, transforms
+and media included, by one route (render/prb_scalar.py: ``params_of``
+-> ``tiled_loss_and_grad``: per tile the taped compacted forward and its
+sweep, then one fuzz / IR tangent pass), and its autograd face
 ``prb_radiance_all`` (``loss.backward()``).  ``parallel`` splits the
 rays of a render pass or a train step over a ``torch.distributed``
 process group; ``examples`` holds the three fit scripts.  ``python -m

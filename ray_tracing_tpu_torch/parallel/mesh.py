@@ -13,7 +13,10 @@ of the gradients in one flat buffer (and one of the loss), the
 counterpart of the JAX package's ``psum``.
 
 Without an initialised process group (parallel/distributed.py) a mesh
-is one process of world size 1 and nothing is communicated.
+is one process of world size 1 and nothing is communicated.  The train
+steps take their gradients from render/prb_scalar.py (the direct step
+from ``tiled_loss_and_grad``, the port's one gradient route); this
+module adds the shards and the collectives.
 """
 
 from __future__ import annotations
@@ -32,12 +35,10 @@ from ray_tracing_tpu_torch.render.prb_scalar import (
     AllParams,
     _active_rows,
     _tiles,
-    prb_loss_and_grad_all,
     prb_radiance_all,
-    scalar_tangent_pass,
+    tiled_loss_and_grad,
 )
 from ray_tracing_tpu_torch.render.renderer import tile_rule
-from ray_tracing_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,21 +178,20 @@ def sharded_render_pass(scene: SceneData, camera: Camera, key, *, width: int, he
 
 
 def sharded_prb_render(colors, scene: SceneData, camera: Camera, key, *, width: int,
-                       height: int, max_depth: int, mesh: Mesh, compaction: bool = True):
+                       height: int, max_depth: int, mesh: Mesh):
     """One 1-spp pass, ray axis split over ``mesh``, differentiable in the
     color table through the PRB backward (prb.prb_radiance): (H, W, 3)
     on every rank."""
     n = width * height
     scene = stamp_shutter(scene, camera)
     ro_s, rd_s, k_trace, rows, _ = _rank_rays(camera, key, width, height, mesh)
-    rad = prb_radiance(colors, scene, ro_s, rd_s, k_trace, max_depth, compaction=compaction,
-                       ids_base=rows.start)
+    rad = prb_radiance(colors, scene, ro_s, rd_s, k_trace, max_depth, ids_base=rows.start)
     return _gather_rows(mesh, rad)[:n].reshape(height, width, 3)
 
 
 def sharded_prb_render_all(params: AllParams, scene: SceneData, camera: Camera, key, *,
                            width: int, height: int, max_depth: int, mesh: Mesh,
-                           compaction: bool = True, scalar_rows=None):
+                           scalar_rows=None):
     """One 1-spp pass, ray axis split over ``mesh``, differentiable in the
     whole parameter set through prb_scalar.prb_radiance_all: (H, W, 3) on
     every rank.  ``scalar_rows`` as there."""
@@ -199,45 +199,8 @@ def sharded_prb_render_all(params: AllParams, scene: SceneData, camera: Camera, 
     scene = stamp_shutter(scene, camera)
     ro_s, rd_s, k_trace, rows, _ = _rank_rays(camera, key, width, height, mesh)
     rad = prb_radiance_all(params, scene, ro_s, rd_s, k_trace, max_depth,
-                           compaction=compaction, scalar_rows=scalar_rows, ids_base=rows.start)
+                           scalar_rows=scalar_rows, ids_base=rows.start)
     return _gather_rows(mesh, rad)[:n].reshape(height, width, 3)
-
-
-def tiled_loss_and_grad(tile_loss, params: AllParams, scene: SceneData, ro, rd, key,
-                        max_depth: int, *, ids_base: int = 0, tile_size: int | None = None,
-                        compaction: bool = True, use_tape: bool = True, scalar_rows=None):
-    """The loss and full-parameter gradient of a wavefront, traced
-    ``tile_size`` rays at a time (None: the device's tile,
-    renderer.tile_rule: on the card the whole wavefront) under one key
-    (the bench protocol): per tile, one ``rtt.tile`` span,
-    ``prb_loss_and_grad_all(..., ids_base=ids_base + start,
-    defer_scalars=True)``, the tiles' losses and color-linear gradients
-    summed in tile order, then one ``scalar_tangent_pass`` over the whole
-    wavefront in batches of ``tile_size`` rays.
-
-    ``tile_loss(rad, rows)`` is the loss of the tile's rays ``rows`` (a
-    slice of ``ro``); the losses must add up to the wavefront's.  Returns
-    ``(loss tensor, AllParams)``."""
-    tile_size = tile_size or tile_rule(ro.shape[0], ro.device)
-    loss, grads, rads, cotangents, touches = None, None, [], [], []
-    for rows in _tiles(ro.shape[0], tile_size):
-        with span("rtt.tile"):
-            l_t, g_t, (rad, g_ray, touched) = prb_loss_and_grad_all(
-                lambda r, _rows=rows: tile_loss(r, _rows), params, scene, ro[rows], rd[rows],
-                key, max_depth, compaction=compaction, use_tape=use_tape,
-                ids_base=ids_base + rows.start, defer_scalars=True,
-            )
-            loss = l_t if loss is None else loss + l_t
-            grads = g_t if grads is None else AllParams(*(a + b for a, b in zip(grads, g_t)))
-            rads.append(rad)
-            cotangents.append(g_ray)
-            touches.append(touched)
-    gfuzz, gir = scalar_tangent_pass(
-        params, scene, ro, rd, key, max_depth, torch.cat(rads), torch.cat(cotangents),
-        torch.cat(touches), compaction=compaction, scalar_rows=scalar_rows,
-        tangent_cap=tile_size, ids_base=ids_base,
-    )
-    return loss, grads._replace(fuzz=gfuzz, ir=gir)
 
 
 def _sgd(params, grads, lr: float):
@@ -249,10 +212,9 @@ def _leaf_grads(leaves):
 
 
 def make_prb_train_step_all_direct(camera: Camera, template_scene: SceneData, *, width: int,
-                                   height: int, max_depth: int, mesh: Mesh, lr: float = 0.5,
-                                   compaction: bool = True, use_tape: bool = True):
+                                   height: int, max_depth: int, mesh: Mesh, lr: float = 0.5):
     """Full-parameter data-parallel SGD step on the direct backward: each
-    rank runs :func:`tiled_loss_and_grad` over its shard with the masked
+    rank runs prb_scalar.tiled_loss_and_grad over its shard with the masked
     L2 loss ``sum(w (rad - target)^2) / (3 n)`` (padded rays weight 0),
     then one all_reduce sums the gradients and another the loss.
     ``template_scene``'s material types fix the fuzz / IR rows once.
@@ -272,10 +234,9 @@ def make_prb_train_step_all_direct(camera: Camera, template_scene: SceneData, *,
         def tile_loss(rad, tile):
             return torch.sum(w_s[tile, None] * (rad - t_s[tile]) ** 2) / (n * 3)
 
-        loss, grads = tiled_loss_and_grad(
-            tile_loss, params, scene, ro_s, rd_s, k_trace, max_depth, ids_base=rows.start,
-            compaction=compaction, use_tape=use_tape, scalar_rows=scalar_rows,
-        )
+        # this module's name, read at each call: a caller may stand in for it
+        loss, grads = tiled_loss_and_grad(tile_loss, params, scene, ro_s, rd_s, k_trace,
+                                          max_depth, ids_base=rows.start, scalar_rows=scalar_rows)
         # the gradients alone in one buffer, as make_prb_train_step_all
         # reduces them: the same element offsets give the same order of
         # the ranks' sums, so the two steps' color-linear leaves stay equal
@@ -287,8 +248,7 @@ def make_prb_train_step_all_direct(camera: Camera, template_scene: SceneData, *,
 
 
 def make_prb_train_step_all(camera: Camera, template_scene: SceneData, *, width: int,
-                            height: int, max_depth: int, mesh: Mesh, lr: float = 0.5,
-                            compaction: bool = True):
+                            height: int, max_depth: int, mesh: Mesh, lr: float = 0.5):
     """Full-parameter data-parallel SGD step on the autograd surface: the
     mean squared error of :func:`sharded_prb_render_all`'s image,
     ``loss.backward()``, one all_reduce of the five ``.grad``.  Equals
@@ -299,8 +259,7 @@ def make_prb_train_step_all(camera: Camera, template_scene: SceneData, *, width:
     def step(params: AllParams, scene: SceneData, key, target):
         leaves = AllParams(*(p.detach().requires_grad_(True) for p in params))
         img = sharded_prb_render_all(leaves, scene, camera, key, width=width, height=height,
-                                     max_depth=max_depth, mesh=mesh, compaction=compaction,
-                                     scalar_rows=scalar_rows)
+                                     max_depth=max_depth, mesh=mesh, scalar_rows=scalar_rows)
         loss = torch.mean((img - target) ** 2)
         loss.backward()
         return _sgd(params, all_reduce_sum(mesh, _leaf_grads(leaves)), lr), loss.detach()
@@ -313,7 +272,7 @@ def _with_colors(scene: SceneData, colors) -> SceneData:
 
 
 def make_prb_train_step(camera: Camera, *, width: int, height: int, max_depth: int,
-                        mesh: Mesh, lr: float = 0.5, compaction: bool = True):
+                        mesh: Mesh, lr: float = 0.5):
     """Data-parallel SGD step on the color table through the PRB backward
     (:func:`sharded_prb_render`).  Returns ``step(scene, key, target) ->
     (scene', loss)``."""
@@ -321,7 +280,7 @@ def make_prb_train_step(camera: Camera, *, width: int, height: int, max_depth: i
     def step(scene: SceneData, key, target):
         colors = scene.textures.color.detach().requires_grad_(True)
         img = sharded_prb_render(colors, scene, camera, key, width=width, height=height,
-                                 max_depth=max_depth, mesh=mesh, compaction=compaction)
+                                 max_depth=max_depth, mesh=mesh)
         loss = torch.mean((img - target) ** 2)
         loss.backward()
         (g,) = all_reduce_sum(mesh, _leaf_grads([colors]))

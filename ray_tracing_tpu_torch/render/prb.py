@@ -27,11 +27,8 @@ every color-linear gradient repeats bit for bit and equals the CPU's.
 The fuzz and IR gradients come from a reverse-mode replay of the rays
 that reach a metal or a dielectric (render/prb_scalar.py).
 
-:func:`prb_grad_dense` replays the dense bounce loop with the tape
-writer and sweeps its tape, the color-linear backward of the dense
-(``compaction=False``) paths; :func:`prb_radiance_full` and
-:func:`prb_radiance` are the color-linear faces of the autograd surface
-``prb_scalar.prb_radiance_all``.
+:func:`prb_radiance_full` and :func:`prb_radiance` are the
+color-linear faces of the autograd surface ``prb_scalar.prb_radiance_all``.
 """
 
 from __future__ import annotations
@@ -104,59 +101,8 @@ def grads_image_flat(gacc, scene: SceneData):
     return gacc[1][: max(i * h * w, 1)]
 
 
-def prb_grad_dense(scene: SceneData, ro, rd, key, max_depth: int, rad_total, g, alive0=None,
-                   ids0=None, accumulate: bool = True):
-    """Replay the dense bounce loop (integrator.trace) with the tape
-    writer, then sweep the tape: returns ``((gcol, gimg, gmet), rad (N,
-    3), touched (N,) i32)``, touched the bitmask of the paths that reach
-    a metal (1) or a dielectric (2).  The accumulation is the tape sweep's
-    one ordered scatter into ``[gimg | gcol | gmet]`` (K2 on the card), so
-    it repeats bit for bit.
-
-    ``rad_total`` and ``g`` are the forward's radiance and the loss
-    cotangent per ray.  ``alive0`` restricts the replay to a subset of
-    rays (the others return zero radiance); ``ids0`` gives the rays'
-    original ids, so a gathered subset draws its own uniforms.
-    ``accumulate=False`` is a radiance-only replay with no tape (the dense
-    tangent pass differentiates it): it returns ``(None, rad, None)``."""
-    from ray_tracing_tpu_torch.render.integrator import (
-        _bounce,
-        _finish,
-        _initial_carry,
-        stage_schedule,
-    )
-    from ray_tracing_tpu_torch.render.prb_tape import _TapeWriter, tape_sweep
-
-    n = ro.shape[0]
-    rad, thr, _, _, alive, ids, segments = _initial_carry(ro, rd, 0)
-    if alive0 is not None:
-        alive = alive0
-    if ids0 is not None:
-        ids = ids0.to(torch.int64)
-    tape = _TapeWriter(scene, max_depth, n, 0, ro.device, dense=True) if accumulate else None
-    everyone = torch.arange(n, dtype=torch.int64, device=ro.device)
-    carry = (rad, thr, ro, rd, alive, ids, segments)
-    bounce = 0
-    # the tape is laid out in the compacted schedule's stages, each one
-    # full width in input order, so that the sweep walks it unchanged
-    for bounces in stage_schedule(max_depth):
-        if tape is not None:
-            tape.start_stage(everyone, n)
-        for _ in range(bounces):
-            carry = _bounce(scene, key, bounce, carry, False, tape)
-            bounce += 1
-    rad, thr, _, _, alive, _, _ = carry
-    rad = _finish(scene, rad, thr, alive)
-    if alive0 is not None:
-        rad = torch.where(alive0[:, None], rad, 0.0)
-    if tape is None:
-        return None, rad, None
-    return tape_sweep(scene, tape.tape(), rad_total, g), rad, tape.touched
-
-
 def prb_radiance_full(params: PrbParams, scene: SceneData, ro, rd, key, max_depth: int, *,
-                      compaction: bool = True, ids_base: int = 0,
-                      tile_size: int | None = None):
+                      ids_base: int = 0, tile_size: int | None = None):
     """Per-ray radiance (N, 3), differentiable by autograd in every
     color-linear parameter (solid colors, atlas texels, metal albedo):
     ``prb_scalar.prb_radiance_all`` with the tangent pass disabled
@@ -166,14 +112,14 @@ def prb_radiance_full(params: PrbParams, scene: SceneData, ro, rd, key, max_dept
     full = AllParams(color=params.color, images=params.images,
                      metal_albedo=params.metal_albedo,
                      fuzz=scene.materials.fuzz.detach(), ir=scene.materials.ir.detach())
-    return prb_radiance_all(full, scene, ro, rd, key, max_depth, compaction=compaction,
-                            scalar_rows=((), ()), ids_base=ids_base, tile_size=tile_size)
+    return prb_radiance_all(full, scene, ro, rd, key, max_depth, scalar_rows=((), ()),
+                            ids_base=ids_base, tile_size=tile_size)
 
 
 def prb_radiance(colors, scene: SceneData, ro, rd, key, max_depth: int, *,
-                 compaction: bool = True, ids_base: int = 0, tile_size: int | None = None):
+                 ids_base: int = 0, tile_size: int | None = None):
     """Colors-only :func:`prb_radiance_full`: the atlas and metal albedo
     enter as the scene holds them."""
     params = PrbParams(colors, scene.textures.images, scene.materials.albedo)
-    return prb_radiance_full(params, scene, ro, rd, key, max_depth, compaction=compaction,
-                             ids_base=ids_base, tile_size=tile_size)
+    return prb_radiance_full(params, scene, ro, rd, key, max_depth, ids_base=ids_base,
+                             tile_size=tile_size)

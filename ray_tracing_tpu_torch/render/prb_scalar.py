@@ -19,14 +19,15 @@ keyed by (ray id, bounce), so a gathered subset replays its paths
 bit-exactly.  The dielectric's stochastic reflect/refract branch is held
 fixed under differentiation, as reverse-mode AD of the dense loop does.
 
-``prb_loss_and_grad_all`` is the direct entry point: the loss value and
-all five gradients from one taped traversal plus the replay batches,
-with a ``defer_scalars`` protocol so that a caller tracing tiles runs
-one global :func:`scalar_tangent_pass`.  ``prb_radiance_all`` is the
-autograd surface: a ``torch.autograd.Function`` whose forward traces
-(saving only its inputs and the radiance) and whose backward replays
-the paths with the tape writer, sweeps the tapes and runs the fuzz / IR
-pass, so any loss of the radiance takes ``loss.backward()``.
+The port takes a gradient one way, :func:`tiled_loss_and_grad`: per
+tile, the taped compacted forward, the loss cotangent and the tape
+sweep (kernel K2 on the card), then one :func:`scalar_tangent_pass`
+over the whole wavefront for fuzz and IR.  ``prb_loss_and_grad_all`` is
+its one-tile call.  ``prb_radiance_all`` is the autograd face: a
+``torch.autograd.Function`` whose forward traces (saving only its
+inputs) and whose backward runs the same per-tile body and the same
+tangent pass with the incoming cotangent, so any loss of the radiance
+takes ``loss.backward()``.
 """
 
 from __future__ import annotations
@@ -38,8 +39,7 @@ import numpy as np
 import torch
 
 from ray_tracing_tpu_torch.models.scene import MAT_DIELECTRIC, MAT_METAL, SceneData
-from ray_tracing_tpu_torch.render.integrator import trace, trace_compacted, trace_subset_dot
-from ray_tracing_tpu_torch.render.prb import prb_grad_dense
+from ray_tracing_tpu_torch.render.integrator import trace_compacted, trace_subset_dot
 from ray_tracing_tpu_torch.render.prb_tape import tape_sweep, trace_taped
 from ray_tracing_tpu_torch.render.renderer import tile_rule
 from ray_tracing_tpu_torch.utils.profiling import span, sync
@@ -93,78 +93,59 @@ def _active_rows(scene: SceneData, scalar_rows=None):
     return np.nonzero(mtype == MAT_METAL)[0], np.nonzero(mtype == MAT_DIELECTRIC)[0]
 
 
-def _tangent_batches(scene_of, thetas, mask, ro, rd, key, max_depth: int, g, *,
-                     tangent_cap, ids_base, compaction: bool = True):
-    """d(vdot(g, rad)) / d(theta) for each tensor of ``thetas``, over the
-    rays where ``mask`` is set; ``scene_of(*thetas)`` builds the scene.
-
-    The masked rays are gathered in input order into batches of at most
-    ``tangent_cap`` rays (default max(256, n/8)).  Each batch takes one
-    replay under reverse-mode autograd, one ``rtt.tangent_replay`` span,
-    with every theta a leaf that requires grad: the compacted subset
-    trace, or with ``compaction=False`` the dense replay of the subset;
-    one backward gives every leaf's gradient, and the batch's graph is
-    freed before the next.  Rays outside the mask have an exactly-zero
-    derivative and are never traced.  Returns one gradient per theta."""
-    n = ro.shape[0]
-    cap = min(n, tangent_cap or max(256, n // 8))
-    with sync("prb_scalar.touched"):
-        touched = torch.nonzero(mask).squeeze(1)
-    rog = torch.cat([ro, rd, g], dim=1)  # one gather per batch
-    grads = [torch.zeros_like(theta) for theta in thetas]
-    for start in range(0, touched.shape[0], cap):
-        with span("rtt.tangent_replay"), torch.enable_grad():
-            sub = touched[start:start + cap]
-            row = rog[sub]
-            ro_s, rd_s, g_s = row[:, 0:3], row[:, 3:6], row[:, 6:9]
-            alive_s = torch.ones_like(sub, dtype=torch.bool)
-            leaves = [theta.detach().requires_grad_(True) for theta in thetas]
-            s = scene_of(*leaves)
-            if compaction:
-                val = trace_subset_dot(s, ro_s, rd_s, key, max_depth, g_s, alive_s,
-                                       ids_base + sub)
-            else:
-                rad = prb_grad_dense(s, ro_s, rd_s, key, max_depth, None, g_s, alive0=alive_s,
-                                     ids0=ids_base + sub, accumulate=False)[1]
-                val = (g_s * rad).sum(dtype=torch.float64)
-            if val.requires_grad:  # not at depth 1: no scattered direction is traced
-                for acc, part in zip(grads, torch.autograd.grad(val, leaves)):
-                    acc += part
-    return grads
-
-
 @torch.no_grad()
-def _scalar_tangent_pass(p: AllParams, sc: SceneData, ro, rd, key, max_depth: int, g,
-                         touched, *, tangent_cap=None, ids_base=0, compaction: bool = True,
-                         scalar_rows=None):
-    """Fuzz and IR gradients of the scene's active material rows on the
-    touched subset only.  ``touched`` is the tape's bitmask (1: the path
-    reached a metal, 2: a dielectric); the rays that reached an active
-    family are batched once, and each batch's one replay carries both
-    families' rows as leaves.  Returns (gfuzz (M,), gir (M,))."""
+def scalar_tangent_pass(params: AllParams, scene: SceneData, ro, rd, key, max_depth: int, g,
+                        touched, *, tile_size: int | None = None, ids_base: int = 0,
+                        scalar_rows=None):
+    """Fuzz and IR gradients ``(gfuzz (M,), gir (M,))`` of ``vdot(g,
+    rad)`` in the scene's active material rows (:func:`_active_rows`).
+
+    ``touched`` is the tape's bitmask (1: the path reached a metal, 2: a
+    dielectric) and ``g`` the loss cotangent, both over the whole
+    wavefront of ``ro``, whose ray ids start at ``ids_base``.  The rays
+    that reached an active family are gathered in input order into
+    batches of at most ``tile_size`` rays (None: the device's tile,
+    renderer.tile_rule).  Each batch takes one compacted replay under
+    reverse-mode autograd (integrator.trace_subset_dot), one
+    ``rtt.tangent_replay`` span, with every active row of both families
+    a leaf; one backward gives every leaf's gradient, and the batch's
+    graph is freed before the next.  The other rays have an exactly-zero
+    derivative and are never traced."""
     with span("rtt.tangent_pass"):
-        p = AllParams(*(x.detach() for x in p))
+        p = AllParams(*(x.detach() for x in params))
         gfuzz, gir = torch.zeros_like(p.fuzz), torch.zeros_like(p.ir)
         active, bits = [], 0  # (name, rows on the device, its gradient)
-        for name, rows_j, bit, grad in zip(("fuzz", "ir"), _active_rows(sc, scalar_rows), (1, 2),
-                                           (gfuzz, gir)):
+        for name, rows_j, bit, grad in zip(("fuzz", "ir"), _active_rows(scene, scalar_rows),
+                                           (1, 2), (gfuzz, gir)):
             if len(rows_j):
                 with sync("prb_scalar.rows"):  # a copy to the device that waits on it
                     active.append((name, torch.as_tensor(rows_j, device=grad.device), grad))
                 bits |= bit
-        if active:
-
-            def scene_of(*thetas):
-                return _with_all(sc, p._replace(**{
-                    name: getattr(p, name).index_copy(0, rows, theta)
-                    for (name, rows, _), theta in zip(active, thetas)}))
-
-            parts = _tangent_batches(
-                scene_of, [getattr(p, name)[rows] for name, rows, _ in active],
-                (touched & bits) != 0, ro, rd, key, max_depth, g, tangent_cap=tangent_cap,
-                ids_base=ids_base, compaction=compaction)
-            for (_, rows, grad), part in zip(active, parts):
-                grad[rows] = part
+        if not active:
+            return gfuzz, gir
+        n = ro.shape[0]
+        cap = min(n, tile_size or tile_rule(n, ro.device))
+        mask = (touched & bits) != 0
+        with sync("prb_scalar.touched"):
+            picked = torch.nonzero(mask).squeeze(1)
+        rog = torch.cat([ro, rd, g], dim=1)  # one gather per batch
+        thetas = [getattr(p, name)[rows] for name, rows, _ in active]
+        parts = [torch.zeros_like(theta) for theta in thetas]
+        for start in range(0, picked.shape[0], cap):
+            with span("rtt.tangent_replay"), torch.enable_grad():
+                sub = picked[start:start + cap]
+                row = rog[sub]
+                leaves = [theta.detach().requires_grad_(True) for theta in thetas]
+                s = _with_all(scene, p._replace(**{
+                    name: getattr(p, name).index_copy(0, rows, leaf)
+                    for (name, rows, _), leaf in zip(active, leaves)}))
+                val = trace_subset_dot(s, row[:, 0:3], row[:, 3:6], key, max_depth, row[:, 6:9],
+                                       torch.ones_like(sub, dtype=torch.bool), ids_base + sub)
+                if val.requires_grad:  # not at depth 1: no scattered direction is traced
+                    for acc, part in zip(parts, torch.autograd.grad(val, leaves)):
+                        acc += part
+        for (_, rows, grad), part in zip(active, parts):
+            grad[rows] = part
         return gfuzz, gir
 
 
@@ -186,93 +167,6 @@ def _tiles(n: int, tile_size: int | None):
     return [slice(start, min(start + step, n)) for start in range(0, n, step)]
 
 
-@torch.no_grad()
-def _color_replay(s: SceneData, ro, rd, key, max_depth: int, rad, g, *, compaction: bool,
-                  ids_base: int, tile_size: int | None):
-    """The color-linear half of the backward by re-tracing: per tile, the
-    taped compacted forward and its sweep (the tape path's own forward,
-    bit-equal to trace_compacted), or with ``compaction=False`` the dense
-    replay.  Returns ``((gcol, gimg, gmet) summed over the tiles in
-    order, touched (N,))``."""
-    gacc, touched = None, []
-    for rows in _tiles(ro.shape[0], tile_size):
-        base = ids_base + rows.start
-        if compaction:
-            _, touched_t, tape = trace_taped(s, ro[rows], rd[rows], key, max_depth,
-                                             ids_base=base)
-            gacc_t = tape_sweep(s, tape, rad[rows], g[rows])
-            del tape
-        else:
-            ids0 = base + torch.arange(rows.stop - rows.start, device=ro.device)
-            gacc_t, _, touched_t = prb_grad_dense(s, ro[rows], rd[rows], key, max_depth,
-                                                  rad[rows], g[rows], ids0=ids0)
-        gacc = gacc_t if gacc is None else tuple(a + b for a, b in zip(gacc, gacc_t))
-        touched.append(touched_t)
-    return gacc, torch.cat(touched)
-
-
-class _PrbRadianceAll(torch.autograd.Function):
-    """Radiance of the rays, with the PRB backward over the five
-    :class:`AllParams` leaves (prb_radiance_all)."""
-
-    @staticmethod
-    def forward(ctx, scene, ro, rd, key, max_depth, opts, *leaves):
-        s = _with_all(scene, AllParams(*leaves))
-        fn = trace_compacted if opts["compaction"] else trace
-        rad = torch.cat([fn(s, ro[rows], rd[rows], key, max_depth,
-                            ids_base=opts["ids_base"] + rows.start)
-                         for rows in _tiles(ro.shape[0], opts["tile_size"])])
-        ctx.save_for_backward(ro, rd, rad, *leaves)
-        ctx.scene, ctx.key, ctx.max_depth, ctx.opts = scene, key, max_depth, opts
-        return rad
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        ro, rd, rad, *leaves = ctx.saved_tensors
-        p, opts = AllParams(*leaves), ctx.opts
-        g = g.contiguous()
-        gacc, touched = _color_replay(_with_all(ctx.scene, p), ro, rd, ctx.key, ctx.max_depth,
-                                      rad, g, compaction=opts["compaction"],
-                                      ids_base=opts["ids_base"], tile_size=opts["tile_size"])
-        gfuzz, gir = _scalar_tangent_pass(
-            p, ctx.scene, ro, rd, ctx.key, ctx.max_depth, g, touched,
-            tangent_cap=opts["tangent_cap"], ids_base=opts["ids_base"],
-            compaction=opts["compaction"], scalar_rows=opts["scalar_rows"])
-        return (None,) * 6 + tuple(_assemble_grads(p, gacc, gfuzz, gir))
-
-
-def prb_radiance_all(params: AllParams, scene: SceneData, ro, rd, key, max_depth: int, *,
-                     compaction: bool = True, scalar_rows=None, tangent_cap: int | None = None,
-                     ids_base: int = 0, tile_size: int | None = None):
-    """Per-ray radiance (N, 3), differentiable by autograd in the whole
-    parameter set (``params``' five leaves; any that require grad).
-
-    The forward traces ``tile_size`` rays at a time (None: the device's
-    tile, renderer.tile_rule) under the one key
-    with ids ``ids_base + row`` (compacted, or dense with
-    ``compaction=False``) and keeps only its inputs and the radiance.
-    The backward replays the same paths (the taped forward and its sweep
-    per tile, or the dense replay), which gives the color, texel and
-    metal-albedo gradients, then runs one fuzz / IR tangent pass over
-    all the rays: one traversal more than :func:`prb_loss_and_grad_all`,
-    and no tape lives between forward and backward.  ``scalar_rows``
-    selects the tangent rows as (fuzz rows, IR rows); ``((), ())``
-    disables the tangent pass."""
-    opts = dict(compaction=compaction, scalar_rows=scalar_rows, tangent_cap=tangent_cap,
-                ids_base=ids_base, tile_size=tile_size or tile_rule(ro.shape[0], ro.device))
-    return _PrbRadianceAll.apply(scene, ro, rd, key, max_depth, opts, *params)
-
-
-def scalar_radiance(params: ScalarParams, scene: SceneData, ro, rd, key, max_depth: int, *,
-                    compaction: bool = True, tile_size: int | None = None):
-    """Scalars-only :func:`prb_radiance_all`: the color-linear leaves are
-    the scene's own."""
-    full = params_of(scene)._replace(fuzz=params.fuzz, ir=params.ir)
-    return prb_radiance_all(full, scene, ro, rd, key, max_depth, compaction=compaction,
-                            tile_size=tile_size)
-
-
 def _loss_cotangent(loss_fn, rad):
     """``loss_fn(rad)`` detached, and its gradient in the radiance (zeros
     where the loss does not read it)."""
@@ -283,66 +177,129 @@ def _loss_cotangent(loss_fn, rad):
     return loss.detach(), torch.zeros_like(rad) if g is None else g
 
 
-def prb_loss_and_grad_all(loss_fn, params: AllParams, scene: SceneData, ro, rd, key,
-                          max_depth: int, *, compaction: bool = True, scalar_rows=None,
-                          tangent_cap: int | None = None, use_tape: bool = True,
-                          ids_base: int = 0, defer_scalars: bool = False):
-    """Loss value and full-parameter gradient with no autograd graph over
-    the renderer, for a loss that is a function of the per-ray radiance.
+def _tile_grads(s: SceneData, ro, rd, key, max_depth: int, ids_base: int, cotangent):
+    """One tile of the gradient route: the taped compacted forward, the
+    cotangent of its radiance (``cotangent(rad) -> (loss or None, g)``)
+    and the tape sweep.  Returns ``(loss, (gcol, gimg, gmet), g,
+    touched)``; the tape is freed on return."""
+    rad, touched, tape = trace_taped(s, ro, rd, key, max_depth, ids_base=ids_base)
+    loss, g = cotangent(rad)
+    return loss, tape_sweep(s, tape, rad, g), g, touched
 
-    ``loss_fn(rad) -> scalar tensor`` is differentiated on its own (one
-    small autograd call over the (N, 3) radiance).  By default the taped
-    compacted forward writes the PRB tape and the color-linear gradients
-    come from its sweep; with ``use_tape=False`` the forward is
-    trace_compacted and the backward half re-traces with the tape writer;
-    with ``compaction=False`` the forward is the dense trace and the
-    backward its dense replay (prb.prb_grad_dense).  Fuzz / IR come from
-    the reverse-mode replay of the touched rays (:func:`scalar_tangent_pass`).
-    Returns ``(loss, grads: AllParams)``;
-    every branch equals ``loss_fn(prb_radiance_all(...)).backward()``.
 
-    ``ids_base`` offsets the per-ray RNG ids, so tiles traced under one
-    key with globally unique ids form one logical wavefront.  With
-    ``defer_scalars`` the tangent pass is skipped (grads.fuzz and
-    grads.ir are zero) and the return becomes ``(loss, grads, (rad, g,
-    touched))``: a tiled caller concatenates those and runs
-    :func:`scalar_tangent_pass` once over the whole wavefront."""
-    s = _with_all(scene, params)
-    taped = compaction and use_tape
-    if taped:
-        rad, touched, tape = trace_taped(s, ro, rd, key, max_depth, ids_base=ids_base)
-    else:
-        fn = trace_compacted if compaction else trace
-        with torch.no_grad():
-            rad = fn(s, ro, rd, key, max_depth, ids_base=ids_base)
-    loss, g = _loss_cotangent(loss_fn, rad)
-    if taped:
-        gacc = tape_sweep(s, tape, rad, g)
-        del tape
-    else:
-        gacc, touched = _color_replay(s, ro, rd, key, max_depth, rad, g, compaction=compaction,
-                                      ids_base=ids_base, tile_size=None)
-    if defer_scalars:
-        grads = _assemble_grads(params, gacc, torch.zeros_like(params.fuzz),
-                                torch.zeros_like(params.ir))
-        return loss, grads, (rad, g, touched)
-    gfuzz, gir = _scalar_tangent_pass(params, scene, ro, rd, key, max_depth, g, touched,
-                                      tangent_cap=tangent_cap, ids_base=ids_base,
-                                      compaction=compaction, scalar_rows=scalar_rows)
+def _tiled_grads(s: SceneData, ro, rd, key, max_depth: int, ids_base: int, tile_size: int,
+                 cotangent):
+    """:func:`_tile_grads` over the wavefront's tiles, one ``rtt.tile``
+    span each, under one key with ray ids ``ids_base + row``;
+    ``cotangent(rad, rows)`` takes the tile's rows.  Returns the losses
+    and color-linear gradients summed in tile order (loss None where the
+    cotangents give none) and the whole wavefront's ``(g, touched)``."""
+    loss, gacc, gs, touches = None, None, [], []
+    for rows in _tiles(ro.shape[0], tile_size):
+        with span("rtt.tile"):
+            l_t, gacc_t, g_t, touched_t = _tile_grads(
+                s, ro[rows], rd[rows], key, max_depth, ids_base + rows.start,
+                lambda rad, _rows=rows: cotangent(rad, _rows))
+            loss = l_t if loss is None else loss + l_t
+            gacc = gacc_t if gacc is None else tuple(a + b for a, b in zip(gacc, gacc_t))
+            gs.append(g_t)
+            touches.append(touched_t)
+    return loss, gacc, torch.cat(gs), torch.cat(touches)
+
+
+def tiled_loss_and_grad(tile_loss, params: AllParams, scene: SceneData, ro, rd, key,
+                        max_depth: int, *, ids_base: int = 0, tile_size: int | None = None,
+                        scalar_rows=None):
+    """Loss value and full-parameter gradient of a wavefront, with no
+    autograd graph over the renderer: the port's one gradient route.
+
+    The wavefront is traced ``tile_size`` rays at a time (None: the
+    device's tile, renderer.tile_rule: on the card the whole wavefront)
+    under one key with ray ids ``ids_base + row``.  Per tile, in one
+    ``rtt.tile`` span: the taped compacted forward (prb_tape.trace_taped),
+    the loss and its cotangent in the tile's radiance, and the tape
+    sweep (K2 on the card), which gives the color, texel and
+    metal-albedo gradients; the tiles' losses and gradients are summed
+    in tile order.  Then one :func:`scalar_tangent_pass` over the whole
+    wavefront, in batches of ``tile_size`` rays, gives fuzz and IR.
+
+    ``tile_loss(rad, rows)`` is the loss of the tile's rays ``rows`` (a
+    slice of ``ro``), differentiated on its own; the losses must add up
+    to the wavefront's.  ``scalar_rows`` as :func:`_active_rows`.
+    Returns ``(loss tensor, AllParams)``."""
+    tile_size = tile_size or tile_rule(ro.shape[0], ro.device)
+    loss, gacc, g, touched = _tiled_grads(
+        _with_all(scene, params), ro, rd, key, max_depth, ids_base, tile_size,
+        lambda rad, rows: _loss_cotangent(lambda r: tile_loss(r, rows), rad))
+    gfuzz, gir = scalar_tangent_pass(params, scene, ro, rd, key, max_depth, g, touched,
+                                     tile_size=tile_size, ids_base=ids_base,
+                                     scalar_rows=scalar_rows)
     return loss, _assemble_grads(params, gacc, gfuzz, gir)
 
 
-def scalar_tangent_pass(params: AllParams, scene: SceneData, ro, rd, key, max_depth: int,
-                        rad, g, touched, *, compaction: bool = True, scalar_rows=None,
-                        tangent_cap: int | None = None, ids_base: int = 0):
-    """The fuzz / IR tangent pass on its own: ``(gfuzz, gir)`` from the
-    forward's (rad, g, touched), the second half of
-    :func:`prb_loss_and_grad_all`'s ``defer_scalars`` protocol.  The ray
-    tensors may be the concatenation of tiles traced under one key with
-    ``ids_base`` offsets (pass the whole wavefront's base, normally 0).
-    ``compaction=False`` differentiates the dense replay of each batch
-    (the masked subset with its original ids) in place of the compacted
-    subset trace."""
-    return _scalar_tangent_pass(params, scene, ro, rd, key, max_depth, g, touched,
-                                tangent_cap=tangent_cap, ids_base=ids_base,
-                                compaction=compaction, scalar_rows=scalar_rows)
+def prb_loss_and_grad_all(loss_fn, params: AllParams, scene: SceneData, ro, rd, key,
+                          max_depth: int, *, ids_base: int = 0, scalar_rows=None):
+    """:func:`tiled_loss_and_grad` with the whole wavefront in one tile,
+    for a loss ``loss_fn(rad) -> scalar tensor`` of the per-ray radiance.
+    Returns ``(loss, grads: AllParams)``, which equal
+    ``loss_fn(prb_radiance_all(...)).backward()``'s."""
+    return tiled_loss_and_grad(lambda rad, rows: loss_fn(rad), params, scene, ro, rd, key,
+                               max_depth, ids_base=ids_base, tile_size=max(ro.shape[0], 1),
+                               scalar_rows=scalar_rows)
+
+
+class _PrbRadianceAll(torch.autograd.Function):
+    """Radiance of the rays, with the PRB backward over the five
+    :class:`AllParams` leaves (prb_radiance_all)."""
+
+    @staticmethod
+    def forward(ctx, scene, ro, rd, key, max_depth, opts, *leaves):
+        s = _with_all(scene, AllParams(*leaves))
+        rad = torch.cat([trace_compacted(s, ro[rows], rd[rows], key, max_depth,
+                                         ids_base=opts["ids_base"] + rows.start)
+                         for rows in _tiles(ro.shape[0], opts["tile_size"])])
+        ctx.save_for_backward(ro, rd, *leaves)
+        ctx.scene, ctx.key, ctx.max_depth, ctx.opts = scene, key, max_depth, opts
+        return rad
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        ro, rd, *leaves = ctx.saved_tensors
+        p, opts = AllParams(*leaves), ctx.opts
+        g = g.contiguous()
+        _, gacc, g, touched = _tiled_grads(
+            _with_all(ctx.scene, p), ro, rd, ctx.key, ctx.max_depth, opts["ids_base"],
+            opts["tile_size"], lambda rad, rows: (None, g[rows]))
+        gfuzz, gir = scalar_tangent_pass(p, ctx.scene, ro, rd, ctx.key, ctx.max_depth, g,
+                                         touched, tile_size=opts["tile_size"],
+                                         ids_base=opts["ids_base"],
+                                         scalar_rows=opts["scalar_rows"])
+        return (None,) * 6 + tuple(_assemble_grads(p, gacc, gfuzz, gir))
+
+
+def prb_radiance_all(params: AllParams, scene: SceneData, ro, rd, key, max_depth: int, *,
+                     scalar_rows=None, ids_base: int = 0, tile_size: int | None = None):
+    """Per-ray radiance (N, 3), differentiable by autograd in the whole
+    parameter set (``params``' five leaves; any that require grad).
+
+    The forward traces ``tile_size`` rays at a time (None: the device's
+    tile, renderer.tile_rule) compacted, under the one key with ids
+    ``ids_base + row``, and keeps only its inputs.  The backward takes
+    :func:`tiled_loss_and_grad`'s route with the incoming cotangent in
+    place of a loss's: per tile the taped forward and its sweep, then
+    one fuzz / IR tangent pass over all the rays; one traversal more
+    than :func:`prb_loss_and_grad_all`, and no tape lives between
+    forward and backward.  ``scalar_rows`` selects the tangent rows as
+    (fuzz rows, IR rows); ``((), ())`` disables the tangent pass."""
+    opts = dict(scalar_rows=scalar_rows, ids_base=ids_base,
+                tile_size=tile_size or tile_rule(ro.shape[0], ro.device))
+    return _PrbRadianceAll.apply(scene, ro, rd, key, max_depth, opts, *params)
+
+
+def scalar_radiance(params: ScalarParams, scene: SceneData, ro, rd, key, max_depth: int, *,
+                    tile_size: int | None = None):
+    """Scalars-only :func:`prb_radiance_all`: the color-linear leaves are
+    the scene's own."""
+    full = params_of(scene)._replace(fuzz=params.fuzz, ir=params.ir)
+    return prb_radiance_all(full, scene, ro, rd, key, max_depth, tile_size=tile_size)

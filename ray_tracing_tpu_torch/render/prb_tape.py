@@ -74,15 +74,11 @@ class _TapeWriter:
     """The tape of one taped forward, filled while
     integrator.trace_compacted runs: its stage walker calls
     :meth:`start_stage` before each stage and every bounce calls
-    :meth:`write`.  With ``dense`` the writer serves the dense loop
-    (render/prb.py:prb_grad_dense), whose wavefront stays full width in
-    input order whatever the rays' ids."""
+    :meth:`write`."""
 
-    def __init__(self, scene: SceneData, max_depth: int, n: int, ids_base: int, device, *,
-                 dense: bool = False):
+    def __init__(self, scene: SceneData, max_depth: int, n: int, ids_base: int, device):
         self.scene = scene
         self.ids_base = ids_base
-        self.dense = dense
         self.rows = _empty_rows(max_depth, n, device)
         # bit 0: the path reached a metal, bit 1: a dielectric, in input
         # order; the fuzz / IR pass replays the rays of the active families
@@ -120,11 +116,8 @@ class _TapeWriter:
         bits = (found & (mtype == MAT_METAL)).to(torch.int32) | (
             (found & (mtype == MAT_DIELECTRIC)).to(torch.int32) << 1
         )
-        if self.dense:
-            self.touched |= bits
-        else:
-            pos = ids - self.ids_base  # the live prefix's rays are distinct
-            self.touched[pos] = self.touched[pos] | bits
+        pos = ids - self.ids_base  # the live prefix's rays are distinct
+        self.touched[pos] = self.touched[pos] | bits
 
     def tape(self) -> PrbTape:
         return PrbTape(*self.rows, stage_ids=torch.stack(self.stage_ids),

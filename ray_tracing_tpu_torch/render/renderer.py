@@ -8,6 +8,9 @@ until a noise target; ``RenderResult`` accumulates passes
 and tone-maps.  Rays are traced in tiles (:func:`tile_rule`): on the
 CPU of a bounded size, so the (rays x primitives) candidate grids of the
 plain phase A stay bounded; on the card the whole wavefront at once.
+Every tile is traced with wavefront compaction
+(integrator.trace_compacted), bit-identical to the dense loop
+integrator.trace, which stays as the plain reference.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 from ray_tracing_tpu_torch.models.camera import Camera, CameraParam, camera_rays, stamp_shutter
 from ray_tracing_tpu_torch.models.scene import SceneData
 from ray_tracing_tpu_torch.ops import rng
-from ray_tracing_tpu_torch.render.integrator import trace, trace_compacted
+from ray_tracing_tpu_torch.render.integrator import trace_compacted
 from ray_tracing_tpu_torch.render.prb import TILE_SIZE
 from ray_tracing_tpu_torch.utils.profiling import span, sync
 
@@ -78,7 +81,7 @@ def tile_rule(n_rays: int, device, n_prims: int | None = None) -> int:
 
 def render_pass(scene: SceneData, camera: Camera, key, *, width: int, height: int,
                 max_depth: int, antialias: bool, tile_size: int,
-                with_stats: bool = False, compaction: bool = True):
+                with_stats: bool = False):
     """One full-image 1-spp pass -> (H, W, 3) linear radiance on the
     scene's device; with ``with_stats`` also the traced segment count.
 
@@ -90,12 +93,11 @@ def render_pass(scene: SceneData, camera: Camera, key, *, width: int, height: in
     ro, rd, _time, k_trace = camera_rays(camera, key, width, height, antialias)
     colors = torch.empty((n, 3), dtype=torch.float32, device=ro.device)
     segments = torch.zeros((), dtype=torch.int64, device=ro.device)
-    fn = trace_compacted if compaction else trace
     for start in range(0, n, tile_size):
         stop = min(start + tile_size, n)
         with span("rtt.tile"):
-            out = fn(scene, ro[start:stop], rd[start:stop], k_trace, max_depth,
-                     with_stats=with_stats, ids_base=start)
+            out = trace_compacted(scene, ro[start:stop], rd[start:stop], k_trace, max_depth,
+                                  with_stats=with_stats, ids_base=start)
             if with_stats:
                 out, seg = out
                 segments = segments + seg
@@ -112,7 +114,7 @@ class Renderer:
     spheres and rects."""
 
     def __init__(self, param: RendererParam, camera: CameraParam, scene: SceneData, *,
-                 device, tile_size: Optional[int] = None, compaction: bool = True):
+                 device, tile_size: Optional[int] = None):
         self.param = param
         self.device = torch.device(device)
         self.scene = scene.to(self.device)
@@ -127,7 +129,6 @@ class Renderer:
             max_depth=self.max_depth,
             antialias=self.antialias,
             tile_size=self.tile_size,
-            compaction=compaction,
         )
 
     @staticmethod

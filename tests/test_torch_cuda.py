@@ -26,6 +26,7 @@ from ray_tracing_tpu_torch.ops import cuda_triangles as ct
 from ray_tracing_tpu_torch.ops import geometry as geo
 from ray_tracing_tpu_torch.ops import rng
 from ray_tracing_tpu_torch.render.prb_scalar import params_of, prb_loss_and_grad_all
+from test_torch_tile import dense_pass
 
 pytestmark = pytest.mark.cuda
 
@@ -93,12 +94,11 @@ def test_kernel_refuses_bad_inputs(cuda, zy):
 def test_render_on_card(cuda, zy):
     param = prt.RendererParam(96, 96, max_depth=10)
     compact = prt.Renderer(param, zy.camera, zy.scene, device=cuda)
-    dense = prt.Renderer(param, zy.camera, zy.scene, device=cuda, compaction=False)
     before = ci.LAUNCHES
     img = compact.render(4)
     assert ci.LAUNCHES > before
     assert img.device.type == "cuda" and torch.isfinite(img).all() and (img >= 0).all()
-    assert torch.equal(img, dense.render(4))
+    assert torch.equal(img, dense_pass(compact, 4)[0])
     assert torch.equal(img, compact.render(4))
     one = prt.RendererParam(96, 96, max_depth=1)
     on_card = prt.Renderer(one, zy.camera, zy.scene, device=cuda).render(4).cpu()
@@ -473,13 +473,11 @@ def test_scene_json_render_on_card(cuda, scene_json):
     equals the CPU's."""
     param = prt.RendererParam(64, 64, max_depth=8)
     compact = prt.Renderer(param, scene_json.camera, scene_json.scene, device=cuda)
-    dense = prt.Renderer(param, scene_json.camera, scene_json.scene, device=cuda,
-                         compaction=False)
     before = (ci.TF_LAUNCHES, ct.LAUNCHES)
     img = compact.render(4)
     assert ci.TF_LAUNCHES > before[0] and ct.LAUNCHES > before[1]
     assert img.device.type == "cuda" and torch.isfinite(img).all() and (img >= 0).all()
-    assert torch.equal(img, dense.render(4))
+    assert torch.equal(img, dense_pass(compact, 4)[0])
     assert torch.equal(img, compact.render(4))
     one = prt.RendererParam(32, 32, max_depth=1)
     on_card = prt.Renderer(one, scene_json.camera, scene_json.scene, device=cuda).render(4).cpu()
@@ -613,13 +611,12 @@ def _scene_render_on_card(cuda, scene, cam, counts, launched, idle):
     image equals the CPU's."""
     param = prt.RendererParam(64, 64, max_depth=8)
     compact = prt.Renderer(param, cam, scene, device=cuda)
-    dense = prt.Renderer(param, cam, scene, device=cuda, compaction=False)
     before = counts()
     img = compact.render(4)
     after = counts()
     assert after[launched] > before[launched] and after[idle] == before[idle]
     assert img.device.type == "cuda" and torch.isfinite(img).all() and (img >= 0).all()
-    assert torch.equal(img, dense.render(4))
+    assert torch.equal(img, dense_pass(compact, 4)[0])
     assert torch.equal(img, compact.render(4))
     one = prt.RendererParam(32, 32, max_depth=1)
     on_card = prt.Renderer(one, cam, scene, device=cuda).render(4).cpu()
@@ -655,6 +652,7 @@ def test_zy_train_step_default_tile_matches_tiles_of_65536(cuda, zy, monkeypatch
     benchmark reads it, within its grad_gap (1.5e-2: the gap between the
     norms over the larger of the leaf's and the median leaf's)."""
     from ray_tracing_tpu_torch.parallel import mesh as pm
+    from ray_tracing_tpu_torch.render import prb_scalar
     from ray_tracing_tpu_torch.render.prb_scalar import AllParams
 
     lr, size = 0.01, 800
@@ -664,13 +662,13 @@ def test_zy_train_step_default_tile_matches_tiles_of_65536(cuda, zy, monkeypatch
                                              max_depth=3, mesh=pm.make_mesh(cuda), lr=lr)
     params = params_of(scene)
     target = torch.full((size, size, 3), 0.25, device=cuda)
-    tiles, traced, tiled = [], pm.prb_loss_and_grad_all, pm.tiled_loss_and_grad
+    tiles, traced, tiled = [], prb_scalar._tile_grads, pm.tiled_loss_and_grad
 
     def counted(*args, **kw):
         tiles[-1] += 1
         return traced(*args, **kw)
 
-    monkeypatch.setattr(pm, "prb_loss_and_grad_all", counted)
+    monkeypatch.setattr(prb_scalar, "_tile_grads", counted)
     out = {}
     for tile in (None, 65536):
         monkeypatch.setattr(pm, "tiled_loss_and_grad",

@@ -35,6 +35,7 @@ from ray_tracing_tpu_torch.render.integrator import trace, trace_compacted
 from ray_tracing_tpu_torch.render.prb_scalar import AllParams, params_of, prb_loss_and_grad_all
 
 from test_torch_scene import _assert_tables_equal
+from test_torch_tile import dense_pass
 
 torch.set_num_threads(2)
 
@@ -279,12 +280,13 @@ def test_zero_shutter_renders_as_static():
 
 @pytest.mark.parametrize("depth", [3, 8])
 def test_compacted_equals_dense(motion, depth):
-    """Bit-identical radiance and segment count: each ray's time is keyed
-    by its id, so compaction does not move it."""
+    """The renderer's radiance and segment count equal the dense loop's
+    bit for bit: each ray's time is keyed by its id, so compaction does
+    not move it."""
     scene, cam, _, _ = motion
-    img_c, seg_c = _renderer(scene, cam, depth, tile_size=600).render_with_stats(2)
-    img_d, seg_d = _renderer(scene, cam, depth, tile_size=600,
-                             compaction=False).render_with_stats(2)
+    compact = _renderer(scene, cam, depth, tile_size=600)
+    img_c, seg_c = compact.render_with_stats(2)
+    img_d, seg_d = dense_pass(compact, 2)
     assert torch.equal(img_c, img_d)
     assert seg_c == seg_d > SIZE * SIZE
 

@@ -24,11 +24,11 @@ from ray_tracing_tpu_torch.ops.materials import shade
 from ray_tracing_tpu_torch.render.integrator import trace, trace_compacted
 from ray_tracing_tpu_torch.render.prb_scalar import (
     AllParams,
-    _tangent_batches,
     _with_all,
     params_of,
     prb_loss_and_grad_all,
     scalar_tangent_pass,
+    tiled_loss_and_grad,
 )
 from ray_tracing_tpu_torch.render.prb_tape import trace_taped
 from test_torch_shading import _noise_atol, hits, zy  # noqa: F401  (fixtures)
@@ -99,7 +99,7 @@ def _port_grads(scene, ro, rd, key, depth, w, **kw):
     """(loss, AllParams) of sum(w * rad) through the port, as numpy."""
     ro_t, rd_t, w_t = _t(ro, rd, w)
     loss, g = prb_loss_and_grad_all(lambda r: torch.sum(w_t * r), params_of(scene), scene,
-                                    ro_t, rd_t, key, depth, **kw)[:2]
+                                    ro_t, rd_t, key, depth, **kw)
     return float(loss), AllParams(*(x.numpy() for x in g))
 
 
@@ -178,7 +178,7 @@ def test_sweep_matches_autograd(textured):
     ro, rd = _rays(4096, 2)
     w = _weights(4096, 4)
     key = rng.key(5)
-    _, ours = _port_grads(scene, ro, rd, key, 12, w, defer_scalars=True)
+    _, ours = _port_grads(scene, ro, rd, key, 12, w, scalar_rows=((), ()))
     ad = _autograd_grads(scene, ro, rd, key, 12, w)
     for name in ("color", "images", "metal_albedo"):
         a, b = getattr(ours, name), getattr(ad, name)
@@ -278,42 +278,32 @@ def test_depth_eight_inside_noise_floor(textured, jax_grads):
         assert floor > 0 and matched <= 0.6 * floor, (name, matched, floor)
 
 
-def test_tiled_ids_base_deferred_equals_full_width(textured):
-    """Tiles traced under one key with ids_base, defer_scalars and one
-    global scalar_tangent_pass equal the full-width call
-    (tests/test_prb_tape.py:158)."""
+@pytest.mark.parametrize("tile", [2048, 1536])
+def test_tiled_ids_base_deferred_equals_full_width(textured, tile):
+    """tiled_loss_and_grad's tiles, traced under one key with ids_base,
+    and its one tangent pass over the wavefront in batches of the tile
+    equal the full-width call (tests/test_prb_tape.py:158), also with a
+    tile that does not divide the 4,096 rays (1,536: two full tiles and
+    one of 1,024)."""
     scene = textured[0]
-    n, tile, depth = 4096, 2048, 8
+    n, depth = 4096, 8
     ro_np, rd_np = _rays(n, 5)
     w_np = _weights(n, 8)
     key = rng.key(13)
     l_full, g_full = _port_grads(scene, ro_np, rd_np, key, depth, w_np)
     ro, rd, w = _t(ro_np, rd_np, w_np)
-    params = params_of(scene)
-    loss, grads, rads, gcos, touches = 0.0, None, [], [], []
-    for start in range(0, n, tile):
-        sl = slice(start, start + tile)
-        l_i, g_i, (rad_i, g_ray_i, touched_i) = prb_loss_and_grad_all(
-            lambda r, w_t=w[sl]: torch.sum(w_t * r), params, scene, ro[sl], rd[sl], key, depth,
-            ids_base=start, defer_scalars=True,
-        )
-        loss += float(l_i)
-        grads = g_i if grads is None else AllParams(*(a + b for a, b in zip(grads, g_i)))
-        rads.append(rad_i)
-        gcos.append(g_ray_i)
-        touches.append(touched_i)
-    gfuzz, gir = scalar_tangent_pass(params, scene, ro, rd, key, depth, torch.cat(rads),
-                                     torch.cat(gcos), torch.cat(touches))
-    grads = grads._replace(fuzz=gfuzz, ir=gir)
-    np.testing.assert_allclose(loss, l_full, rtol=1e-6)
+    loss, grads = tiled_loss_and_grad(lambda r, rows: torch.sum(w[rows] * r), params_of(scene),
+                                      scene, ro, rd, key, depth, tile_size=tile)
+    np.testing.assert_allclose(float(loss), l_full, rtol=1e-6)
     for name, a, b in zip(AllParams._fields, g_full, grads):
         np.testing.assert_allclose(b.numpy(), a, rtol=1e-5, atol=1e-9, err_msg=name)
-    assert np.abs(gfuzz.numpy()).sum() > 1e-7 and np.abs(gir.numpy()).sum() > 1e-7
+    assert np.abs(grads.fuzz.numpy()).sum() > 1e-7 and np.abs(grads.ir.numpy()).sum() > 1e-7
 
 
 def test_tangent_batches_exact_when_cap_does_not_divide_count(cornell):
-    """24 rays all aimed at the metal sphere: batches of 16 (the second
-    partial) and of 8 equal one batch of 24 (tests/test_prb_scalar.py:328)."""
+    """24 rays all aimed at the metal sphere: the tangent pass in batches
+    of 16 (the second partial) and of 8 equals one batch of 24, and so
+    does the gradient route in tiles of 16 (tests/test_prb_scalar.py:328)."""
     n = 24
     r = np.random.RandomState(3)
     target = np.asarray([-0.8, 0.5, -0.8]) - np.asarray([0.0, 1.2, 1.8])
@@ -323,22 +313,20 @@ def test_tangent_batches_exact_when_cap_does_not_divide_count(cornell):
     key = rng.key(2)
     params = params_of(cornell)
     metal = torch.tensor([4])
-    mask = torch.ones(n, dtype=torch.bool)
+    touched = torch.ones(n, dtype=torch.int32)  # every ray reached the metal
     g = torch.ones((n, 3))
 
-    def scene_of(theta):
-        return _with_all(cornell, params._replace(fuzz=params.fuzz.index_copy(0, metal, theta)))
-
-    def run(cap):
-        return _tangent_batches(scene_of, [params.fuzz[metal]], mask, ro, rd, key, 5, g,
-                                tangent_cap=cap, ids_base=0)[0]
+    def run(tile):
+        return scalar_tangent_pass(params, cornell, ro, rd, key, 5, g, touched, tile_size=tile,
+                                   scalar_rows=((4,), ()))[0][metal]
 
     ref = run(24)
     assert float(ref.abs().sum()) > 1e-6, "rays must touch"
-    for cap in (16, 8):
-        np.testing.assert_allclose(run(cap).numpy(), ref.numpy(), rtol=1e-5, atol=1e-10,
-                                   err_msg=f"cap={cap}")
-    _, full = prb_loss_and_grad_all(torch.sum, params, cornell, ro, rd, key, 5, tangent_cap=16)
+    for tile in (16, 8):
+        np.testing.assert_allclose(run(tile).numpy(), ref.numpy(), rtol=1e-5, atol=1e-10,
+                                   err_msg=f"tile={tile}")
+    _, full = tiled_loss_and_grad(lambda r, rows: torch.sum(r), params, cornell, ro, rd, key, 5,
+                                  tile_size=16)
     np.testing.assert_allclose(full.fuzz[metal].numpy(), ref.numpy(), rtol=1e-5)
 
 

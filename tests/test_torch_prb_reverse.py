@@ -2,8 +2,11 @@
 replay per batch of the rays that reached an active family) against a
 forward-mode reference written here: one ``torch.autograd.forward_ad``
 tangent per active material row, pushed through the same replay of the
-rays of that row's family alone.  Also: one replay a batch however many
-rows are active, and the render path's stage writes still in place."""
+rays of that row's family alone, on scenes of every kind the tangent
+pass meets: spheres and rects, a mesh with a transform and a medium
+(data/scene.json), and moving spheres.  Also: one replay a batch however
+many rows are active, and the render path's stage writes still in
+place."""
 
 import numpy as np
 import pytest
@@ -12,24 +15,23 @@ import torch.autograd.forward_ad as fwAD
 from torch.profiler import ProfilerActivity, profile
 
 import ray_tracing_tpu_torch as prt
-from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
+from ray_tracing_tpu_torch.models.camera import Camera, camera_rays, stamp_shutter
 from ray_tracing_tpu_torch.ops import rng
 from ray_tracing_tpu_torch.render import integrator
 from ray_tracing_tpu_torch.render.integrator import trace_compacted, trace_subset_dot
-from ray_tracing_tpu_torch.render.prb import prb_grad_dense
 from ray_tracing_tpu_torch.render.prb_scalar import (
     _active_rows,
     _with_all,
     params_of,
-    prb_loss_and_grad_all,
     scalar_tangent_pass,
 )
+from ray_tracing_tpu_torch.render.prb_tape import trace_taped
 from test_torch_prb import _cornell, _rays, _t, _weights
 
 torch.set_num_threads(2)
 
 
-def _forward_reference(params, scene, ro, rd, key, depth, g, touched, compaction):
+def _forward_reference(params, scene, ro, rd, key, depth, g, touched):
     """(gfuzz, gir) by forward mode: per family, its touched rays in one
     batch; per active row, one dual replay whose tangent is that row's
     unit vector."""
@@ -44,12 +46,7 @@ def _forward_reference(params, scene, ro, rd, key, depth, g, touched, compaction
             unit[row] = 1.0
             with fwAD.dual_level():
                 s = _with_all(scene, params._replace(**{name: fwAD.make_dual(base, unit)}))
-                if compaction:
-                    val = trace_subset_dot(s, ro[sub], rd[sub], key, depth, g[sub], alive, sub)
-                else:
-                    rad = prb_grad_dense(s, ro[sub], rd[sub], key, depth, None, g[sub],
-                                         alive0=alive, ids0=sub, accumulate=False)[1]
-                    val = (g[sub] * rad).sum(dtype=torch.float64)
+                val = trace_subset_dot(s, ro[sub], rd[sub], key, depth, g[sub], alive, sub)
                 tangent = fwAD.unpack_dual(val).tangent
             if tangent is not None:
                 grad[row] = tangent
@@ -57,18 +54,16 @@ def _forward_reference(params, scene, ro, rd, key, depth, g, touched, compaction
     return tuple(out)
 
 
-def _cotangents(scene, ro, rd, key, depth, w, compaction=True):
-    """(params, g, touched) of sum(w * rad) from the deferred forward."""
-    params = params_of(scene)
-    _, _, (_, g, touched) = prb_loss_and_grad_all(lambda r: torch.sum(w * r), params, scene, ro,
-                                                  rd, key, depth, compaction=compaction,
-                                                  defer_scalars=True)
-    return params, g, touched
+def _cotangents(scene, ro, rd, key, depth, w):
+    """(params, g, touched) of sum(w * rad): the cotangent is w, the
+    bitmask the taped forward's."""
+    _, touched, _ = trace_taped(scene, ro, rd, key, depth)
+    return params_of(scene), w, touched
 
 
-def _zy_rays():
-    bundle = prt.load_scene_json("data/zy_scene.json")
-    ro, rd, _, key = camera_rays(Camera.build(bundle.camera, 1.0), rng.key(4), 32, 32)
+def _json_rays(path, size):
+    bundle = prt.load_scene_json(path)
+    ro, rd, _, key = camera_rays(Camera.build(bundle.camera, 1.0), rng.key(4), size, size)
     w = torch.from_numpy(_weights(ro.shape[0], 5))
     return bundle.scene, ro, rd, key, w
 
@@ -78,20 +73,44 @@ def _cornell_rays():
     return _cornell(prt.SceneBuilder), ro, rd, rng.key(6), w
 
 
-@pytest.mark.parametrize("case,depth,compaction", [
-    ("cornell", 6, True),
-    ("zy", 5, True),
-    ("cornell", 6, False),
-    ("zy", 5, False),
-], ids=["cornell", "zy_d5", "cornell_dense", "zy_d5_dense"])
-def test_reverse_pass_matches_forward_mode(case, depth, compaction):
+def _motion_rays():
+    """A fuzzy metal sphere and a glass sphere in motion over a Perlin
+    floor under an important light, shutter [0, 1]: every ray's time is
+    keyed by its id, so the gathered replay must draw the same times."""
+    b = prt.SceneBuilder(background=(0.05, 0.05, 0.05))
+    floor = b.add_lambertian(b.add_texture_noise(0.7, 4))
+    light = b.add_diffuse_light(b.add_texture_solid((4.0, 3.5, 3.0)))
+    metal = b.add_metal((0.9, 0.85, 0.8), 0.2)
+    glass = b.add_dielectric(1.5)
+    b.add_rect("zx", -2, 2, -2, 2, 0.0, floor, positive=True)
+    b.add_rect("zx", -1, 1, -1, 1, 3.0, light, positive=False, important=True)
+    b.add_sphere_moving((-0.8, 0.5, -0.8), (-0.5, 0.5, -0.8), 0.4, metal)
+    b.add_sphere_moving((0.8, 0.5, -0.8), (0.8, 0.7, -0.8), 0.4, glass)
+    camera = Camera.build(prt.CameraParam((0.0, 1.2, 1.8), (0.0, 0.5, -0.8), 60, time0=0.0,
+                                          time1=1.0), 1.0)
+    ro, rd, _, key = camera_rays(camera, rng.key(8), 32, 32)
+    w = torch.from_numpy(_weights(ro.shape[0], 9))
+    return stamp_shutter(b.build(), camera), ro, rd, key, w
+
+
+CASES = {
+    "cornell": _cornell_rays,
+    "zy": lambda: _json_rays("data/zy_scene.json", 32),
+    "scene_json": lambda: _json_rays("data/scene.json", 32),
+    "motion": _motion_rays,
+}
+
+
+@pytest.mark.parametrize("case,depth", [("cornell", 6), ("zy", 5), ("scene_json", 4),
+                                        ("motion", 5)],
+                         ids=["cornell", "zy_d5", "scene_json_d4", "motion_d5"])
+def test_reverse_pass_matches_forward_mode(case, depth):
     """Both families' gradients from one reverse replay per batch equal
-    the per-row forward-mode tangents, compacted and dense."""
-    scene, ro, rd, key, w = _cornell_rays() if case == "cornell" else _zy_rays()
-    params, g, touched = _cotangents(scene, ro, rd, key, depth, w, compaction)
-    got = scalar_tangent_pass(params, scene, ro, rd, key, depth, None, g, touched,
-                              compaction=compaction)
-    want = _forward_reference(params, scene, ro, rd, key, depth, g, touched, compaction)
+    the per-row forward-mode tangents."""
+    scene, ro, rd, key, w = CASES[case]()
+    params, g, touched = _cotangents(scene, ro, rd, key, depth, w)
+    got = scalar_tangent_pass(params, scene, ro, rd, key, depth, g, touched)
+    want = _forward_reference(params, scene, ro, rd, key, depth, g, touched)
     for name, a, b in zip(("fuzz", "ir"), got, want):
         assert float(b.abs().sum()) > 1e-6, name
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-9, err_msg=name)
@@ -123,7 +142,7 @@ def _replays(fn):
 def test_one_replay_per_batch_for_many_rows():
     """Three active metal rows and a dielectric row: one batch is one
     replay, every row's gradient equals its forward-mode tangent, and
-    batches of a cap that does not divide the touched count give the
+    batches of a tile that does not divide the touched count give the
     same gradients in one replay each."""
     scene = _metals_and_glass()
     fuzz_rows, ir_rows = _active_rows(scene)
@@ -133,19 +152,19 @@ def test_one_replay_per_batch_for_many_rows():
     params, g, touched = _cotangents(scene, ro, rd, key, 6, w)
     count = int(((touched & 3) != 0).sum())
     (gfuzz, gir), replays = _replays(lambda: scalar_tangent_pass(
-        params, scene, ro, rd, key, 6, None, g, touched, tangent_cap=ro.shape[0]))
+        params, scene, ro, rd, key, 6, g, touched, tile_size=ro.shape[0]))
     assert replays == 1
-    want = _forward_reference(params, scene, ro, rd, key, 6, g, touched, True)
+    want = _forward_reference(params, scene, ro, rd, key, 6, g, touched)
     # the third metal row sums its rays' terms to 0.054 from 6.9 in
     # magnitude: each path's derivative carries float32 rounding (~1e-7 of
     # its term) in either mode, which shows at ~1.5e-5 of that one sum
     for name, a, b, rows in zip(("fuzz", "ir"), (gfuzz, gir), want, (fuzz_rows, ir_rows)):
         assert (b[rows].abs() > 1e-2).all(), name
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=2e-6, err_msg=name)
-    cap = count // 3 + 1
+    tile = count // 3 + 1
     (bfuzz, bir), replays = _replays(lambda: scalar_tangent_pass(
-        params, scene, ro, rd, key, 6, None, g, touched, tangent_cap=cap))
-    assert replays == -(-count // cap) == 3
+        params, scene, ro, rd, key, 6, g, touched, tile_size=tile))
+    assert replays == -(-count // tile) == 3
     np.testing.assert_allclose(bfuzz.numpy(), gfuzz.numpy(), rtol=1e-5, atol=1e-9)
     np.testing.assert_allclose(bir.numpy(), gir.numpy(), rtol=1e-5, atol=1e-9)
 
@@ -168,5 +187,5 @@ def test_render_stage_writes_stay_in_place(monkeypatch):
     assert in_place == [True, True]
     params, g, touched = _cotangents(scene, ro, rd, key, 12, w)
     in_place.clear()
-    scalar_tangent_pass(params, scene, ro, rd, key, 12, rad, g, touched)
+    scalar_tangent_pass(params, scene, ro, rd, key, 12, g, touched)
     assert in_place and not any(in_place)

@@ -42,7 +42,7 @@ from ray_tracing_tpu_torch.render.prb_scalar import (
     _with_all,
     params_of,
     prb_loss_and_grad_all,
-    scalar_tangent_pass,
+    tiled_loss_and_grad,
 )
 from ray_tracing_tpu_torch.render.prb_tape import trace_taped
 
@@ -117,7 +117,7 @@ def _port_grads(scene, ro, rd, key, depth, w, **kw):
     """(loss, AllParams) of sum(w * rad) through the port, as numpy."""
     ro_t, rd_t, w_t = _t(ro, rd, w)
     loss, g = prb_loss_and_grad_all(lambda r: torch.sum(w_t * r), params_of(scene), scene,
-                                    ro_t, rd_t, key, depth, **kw)[:2]
+                                    ro_t, rd_t, key, depth, **kw)
     return float(loss), AllParams(*(x.numpy() for x in g))
 
 
@@ -298,31 +298,18 @@ def test_all_leaves_match_autograd(mixed):
 
 @pytest.mark.parametrize("which", ["mixed", "scene.json"])
 def test_tiled_ids_base_deferred_equals_full_width(mixed, scene_json, which):
-    """Tiles traced under one key with ids_base, defer_scalars and one
-    global scalar_tangent_pass equal the full-width call."""
+    """tiled_loss_and_grad's tiles, traced under one key with ids_base,
+    and its one tangent pass over the wavefront in batches of the tile
+    equal the full-width call."""
     scene, ro, rd, key = _mixed_rays(mixed) if which == "mixed" else scene_json
     n, depth = ro.shape[0], 8
-    tile = n // 2
     w = torch.from_numpy(_weights(n, 8))
     params = params_of(scene)
     l_full, g_full = prb_loss_and_grad_all(lambda r: torch.sum(w * r), params, scene, ro, rd,
                                            key, depth)
-    loss, grads, rads, gcos, touches = 0.0, None, [], [], []
-    for start in range(0, n, tile):
-        sl = slice(start, start + tile)
-        l_i, g_i, (rad_i, g_ray_i, touched_i) = prb_loss_and_grad_all(
-            lambda r, w_t=w[sl]: torch.sum(w_t * r), params, scene, ro[sl], rd[sl], key, depth,
-            ids_base=start, defer_scalars=True,
-        )
-        loss += float(l_i)
-        grads = g_i if grads is None else AllParams(*(a + b for a, b in zip(grads, g_i)))
-        rads.append(rad_i)
-        gcos.append(g_ray_i)
-        touches.append(touched_i)
-    gfuzz, gir = scalar_tangent_pass(params, scene, ro, rd, key, depth, torch.cat(rads),
-                                     torch.cat(gcos), torch.cat(touches))
-    grads = grads._replace(fuzz=gfuzz, ir=gir)
-    np.testing.assert_allclose(loss, float(l_full), rtol=1e-6)
+    loss, grads = tiled_loss_and_grad(lambda r, rows: torch.sum(w[rows] * r), params, scene, ro,
+                                      rd, key, depth, tile_size=n // 2)
+    np.testing.assert_allclose(float(loss), float(l_full), rtol=1e-6)
     for name, a, b in zip(AllParams._fields, g_full, grads):
         np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5, atol=1e-9, err_msg=name)
         assert np.isfinite(b.numpy()).all(), name

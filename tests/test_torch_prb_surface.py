@@ -1,10 +1,8 @@
 """The port's autograd surface (render/prb_scalar.py:prb_radiance_all, a
 torch.autograd.Function, and its wrappers prb_radiance_full,
-prb_radiance, scalar_radiance), the dense replay (render/prb.py:
-prb_grad_dense) and the re-traced and dense branches of
-prb_loss_and_grad_all, against the direct path and the JAX package, on
-the small scenes of the JAX package's PRB tests with rays made by numpy
-from a seed."""
+prb_radiance, scalar_radiance) and the taped sweep, against the direct
+path and the JAX package, on the small scenes of the JAX package's PRB
+tests with rays made by numpy from a seed."""
 
 import jax
 import jax.numpy as jnp
@@ -19,8 +17,8 @@ from ray_tracing_tpu.render.prb import prb_grad_dense as jprb_grad_dense
 from ray_tracing_tpu.render.prb_scalar import params_of as jparams_of
 from ray_tracing_tpu.render.prb_scalar import prb_radiance_all as jprb_radiance_all
 from ray_tracing_tpu_torch.ops import rng
-from ray_tracing_tpu_torch.render.integrator import trace, trace_compacted
-from ray_tracing_tpu_torch.render.prb import PrbParams, prb_grad_dense, prb_radiance, prb_radiance_full
+from ray_tracing_tpu_torch.render.integrator import trace_compacted
+from ray_tracing_tpu_torch.render.prb import PrbParams, prb_radiance, prb_radiance_full
 from ray_tracing_tpu_torch.render.prb_scalar import (
     AllParams,
     ScalarParams,
@@ -29,8 +27,8 @@ from ray_tracing_tpu_torch.render.prb_scalar import (
     prb_loss_and_grad_all,
     prb_radiance_all,
     scalar_radiance,
-    scalar_tangent_pass,
 )
+from ray_tracing_tpu_torch.render.prb_tape import tape_sweep, trace_taped
 from test_torch_prb import _rays, _textured_cornell, _weights
 
 torch.set_num_threads(2)
@@ -72,8 +70,7 @@ def textured():
     return _textured_cornell(prt.SceneBuilder)
 
 
-@pytest.mark.parametrize("compaction", [True, False], ids=["compacted", "dense"])
-def test_surface_equals_direct_path(textured, compaction):
+def test_surface_equals_direct_path(textured):
     """Depth 6: the forward equals the trace it runs bit for bit, and
     loss.backward() gives prb_loss_and_grad_all's five leaves (the color
     linear ones bit for bit, fuzz and IR to rtol 1e-6), also with tiles
@@ -82,76 +79,17 @@ def test_surface_equals_direct_path(textured, compaction):
     ro, rd = _t(*_rays(1024, 3))
     w = torch.from_numpy(_weights(1024, 4))
     key = rng.key(11)
-    loss, rad, grads = _surface_grads(textured, ro, rd, key, 6, w, compaction=compaction)
-    fn = trace_compacted if compaction else trace
-    assert torch.equal(rad, fn(textured, ro, rd, key, 6))
-    l_dir, g_dir = prb_loss_and_grad_all(_loss(w), params_of(textured), textured, ro, rd, key, 6,
-                                         compaction=compaction)
+    loss, rad, grads = _surface_grads(textured, ro, rd, key, 6, w)
+    assert torch.equal(rad, trace_compacted(textured, ro, rd, key, 6))
+    l_dir, g_dir = prb_loss_and_grad_all(_loss(w), params_of(textured), textured, ro, rd, key, 6)
     assert torch.equal(loss, l_dir)
     _assert_leaves(grads, g_dir)
     for name in ("color", "images", "metal_albedo", "fuzz", "ir"):
         assert float(getattr(grads, name).abs().sum()) > 1e-6, name
-    _, rad_t, tiled = _surface_grads(textured, ro, rd, key, 6, w, compaction=compaction,
-                                     tile_size=256)
+    _, rad_t, tiled = _surface_grads(textured, ro, rd, key, 6, w, tile_size=256)
     assert torch.equal(rad_t, rad)
     for name, a, b in zip(AllParams._fields, tiled, grads):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-9, err_msg=name)
-
-
-def test_new_branches_equal_the_default(textured):
-    """The re-traced (use_tape=False) and dense (compaction=False)
-    branches of prb_loss_and_grad_all, and the dense tangent pass, equal
-    the default within rtol 1e-6 (the color-linear sums differ only in
-    K2's row order); the deferred dense branch returns (rad, g,
-    touched) with the dense trace's radiance."""
-    ro, rd = _t(*_rays(1024, 5))
-    w = torch.from_numpy(_weights(1024, 6))
-    key = rng.key(13)
-    params = params_of(textured)
-    l0, g0 = prb_loss_and_grad_all(_loss(w), params, textured, ro, rd, key, 8)
-    for kw in (dict(use_tape=False), dict(compaction=False)):
-        l1, g1 = prb_loss_and_grad_all(_loss(w), params, textured, ro, rd, key, 8, **kw)
-        np.testing.assert_allclose(float(l1), float(l0), rtol=1e-6)
-        for name, a, b in zip(AllParams._fields, g1, g0):
-            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-12,
-                                       err_msg=f"{kw} {name}")
-    _, gz, (rad, g, touched) = prb_loss_and_grad_all(_loss(w), params, textured, ro, rd, key, 8,
-                                                     compaction=False, defer_scalars=True)
-    assert torch.equal(rad, trace(textured, ro, rd, key, 8))
-    assert float(gz.fuzz.abs().sum()) == 0.0 and (touched & 1).any() and (touched & 2).any()
-    dense = scalar_tangent_pass(params, textured, ro, rd, key, 8, rad, g, touched,
-                                compaction=False)
-    compacted = scalar_tangent_pass(params, textured, ro, rd, key, 8, rad, g, touched)
-    for name, a, b, c in zip(("fuzz", "ir"), dense, compacted, (g0.fuzz, g0.ir)):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-12, err_msg=name)
-        np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=1e-6, atol=1e-12, err_msg=name)
-
-
-def test_dense_replay_subset_and_radiance_only(textured):
-    """prb_grad_dense's replay equals the dense trace bit for bit; a
-    subset replay with the rays' original ids gives their radiance and
-    zero elsewhere; accumulate=False returns the radiance alone."""
-    ro, rd = _t(*_rays(512, 7))
-    key = rng.key(2)
-    rad = trace(textured, ro, rd, key, 8)
-    g = torch.from_numpy(_weights(512, 8))
-    gacc, replayed, touched = prb_grad_dense(textured, ro, rd, key, 8, rad, g)
-    assert torch.equal(replayed, rad) and touched.shape == (512,)
-    assert all(float(x.abs().sum()) > 0 for x in gacc)
-    pick = torch.arange(0, 512, 3)
-    alive0 = torch.zeros(512, dtype=torch.bool)
-    alive0[: pick.numel()] = True
-    ro_s = torch.zeros_like(ro)
-    rd_s = torch.zeros_like(rd)
-    rd_s[:, 2] = 1.0
-    ro_s[: pick.numel()], rd_s[: pick.numel()] = ro[pick], rd[pick]
-    ids0 = torch.zeros(512, dtype=torch.int64)
-    ids0[: pick.numel()] = pick
-    none, sub, none2 = prb_grad_dense(textured, ro_s, rd_s, key, 8, None, None, alive0=alive0,
-                                      ids0=ids0, accumulate=False)
-    assert none is None and none2 is None
-    assert torch.equal(sub[: pick.numel()], rad[pick])
-    assert float(sub[pick.numel():].abs().sum()) == 0.0
 
 
 @pytest.fixture(scope="module")
@@ -198,18 +136,19 @@ def test_surface_matches_jax_at_depth_one(jax_depth_one):
 
 
 def test_dense_replay_matches_jax_at_depth_one(jax_depth_one):
-    """Depth 1: prb_grad_dense's three accumulators, replayed radiance and
-    touched bitmask against the JAX package's prb_grad_dense (1e-5)."""
+    """Depth 1: the taped forward's radiance and touched bitmask and its
+    sweep's three accumulators against the JAX package's dense replay
+    prb_grad_dense (1e-5)."""
     scene = _textured_cornell(prt.SceneBuilder, ENV)
     ro_np, rd_np = _rays(2048, 3)
     w_np = _weights(2048, 6)
     g_np = _weights(2048, 9)
     key = rng.key(7)
     ro, rd, g = _t(ro_np, rd_np, g_np)
-    rad = trace(scene, ro, rd, key, 1)
-    gacc, replayed, touched = prb_grad_dense(scene, ro, rd, key, 1, rad, g)
+    rad, touched, tape = trace_taped(scene, ro, rd, key, 1)
+    gacc = tape_sweep(scene, tape, rad, g)
     _, _, jacc, jrad, jtouched = jax_depth_one(ro_np, rd_np, key, w_np, g_np)
-    np.testing.assert_allclose(replayed.numpy(), jrad, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(rad.numpy(), jrad, rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(touched.numpy(), jtouched)
     for name, a, b in zip(("color", "images", "metal_albedo"), gacc, jacc):
         np.testing.assert_allclose(a.numpy(), b[: a.shape[0]], rtol=1e-5, atol=1e-6, err_msg=name)
@@ -290,7 +229,7 @@ def test_surface_fuzz_matches_central_difference():
         return params_of(scene)._replace(fuzz=fuzz)
 
     f0 = torch.tensor(0.05, requires_grad=True)
-    torch.mean(prb_radiance_all(with_fuzz(f0), scene, ro, rd, key, 3, compaction=False)).backward()
+    torch.mean(prb_radiance_all(with_fuzz(f0), scene, ro, rd, key, 3)).backward()
 
     def loss(f):
         s = _with_all(scene, with_fuzz(torch.tensor(f)))

@@ -9,6 +9,7 @@ import torch
 import ray_tracing_tpu as jrt
 import ray_tracing_tpu_torch as prt
 from ray_tracing_tpu_torch.render.integrator import stage_schedule
+from test_torch_tile import dense_pass
 
 torch.set_num_threads(2)
 
@@ -54,12 +55,12 @@ def test_depth_ten_inside_noise_floor(zy):
 
 @pytest.mark.parametrize("depth", [3, 10])
 def test_compacted_equals_dense(zy, depth):
-    """Compaction is an execution strategy: bit-identical radiance and
-    segment count, with tiles that split the image unevenly."""
+    """Compaction is an execution strategy: the renderer's radiance and
+    segment count, with tiles that split the image unevenly, equal the
+    dense loop's over the same rays bit for bit."""
     compact, _ = _renderers(zy, depth, tile_size=1536)
-    dense, _ = _renderers(zy, depth, tile_size=1536, compaction=False)
     img_c, seg_c = compact.render_with_stats(2)
-    img_d, seg_d = dense.render_with_stats(2)
+    img_d, seg_d = dense_pass(compact, 2)
     assert torch.equal(img_c, img_d)
     assert seg_c == seg_d > SIZE * SIZE
 

@@ -25,6 +25,7 @@ from ray_tracing_tpu_torch.ops import cuda_triangles as ct
 from ray_tracing_tpu_torch.ops import rng
 from ray_tracing_tpu_torch.ops.intersect import KIND_SPHERE, intersect_scene
 from ray_tracing_tpu_torch.ops.materials import N_SCATTER_U
+from test_torch_tile import dense_pass
 
 torch.set_num_threads(2)
 
@@ -124,11 +125,11 @@ def test_depth_four_inside_noise_floor(bundles):
 
 @pytest.mark.parametrize("depth", [3, 12])
 def test_compacted_equals_dense(bundles, depth):
-    """Bit-identical radiance and segment count, with tiles that split the
-    image unevenly."""
-    img_c, seg_c = _renderer(bundles[0], depth, tile_size=600).render_with_stats(2)
-    img_d, seg_d = _renderer(bundles[0], depth, tile_size=600,
-                             compaction=False).render_with_stats(2)
+    """The renderer's radiance and segment count, with tiles that split the
+    image unevenly, equal the dense loop's bit for bit."""
+    compact = _renderer(bundles[0], depth, tile_size=600)
+    img_c, seg_c = compact.render_with_stats(2)
+    img_d, seg_d = dense_pass(compact, 2)
     assert torch.equal(img_c, img_d)
     assert seg_c == seg_d > SIZE * SIZE
 

@@ -16,8 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 import ray_tracing_tpu_torch as prt
 from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
 from ray_tracing_tpu_torch.ops import rng
-from ray_tracing_tpu_torch.parallel.mesh import tiled_loss_and_grad
-from ray_tracing_tpu_torch.render.prb_scalar import params_of
+from ray_tracing_tpu_torch.render.prb_scalar import params_of, tiled_loss_and_grad
 from ray_tracing_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

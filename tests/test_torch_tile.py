@@ -4,7 +4,9 @@ card's whole-wavefront tile and its cap (a pure function of the ray
 count and the device, so no card is needed), and the invariants the
 card's one tile rests on, here at 64x64 depth 3: an image does not
 depend on its tiles, and a gradient only by the float order of the
-tiles' and tangent batches' sums."""
+tiles' and tangent batches' sums.  :func:`dense_pass` is a renderer's
+pass by the dense loop, what the compacted renderer is held to here and
+in the render tests of the other files (this file imports no JAX)."""
 
 import os
 
@@ -12,10 +14,11 @@ import pytest
 import torch
 
 import ray_tracing_tpu_torch as prt
-from ray_tracing_tpu_torch.models.camera import Camera, camera_rays
+from ray_tracing_tpu_torch import scenes
+from ray_tracing_tpu_torch.models.camera import Camera, camera_rays, stamp_shutter
 from ray_tracing_tpu_torch.ops import rng
-from ray_tracing_tpu_torch.parallel.mesh import tiled_loss_and_grad
-from ray_tracing_tpu_torch.render.prb_scalar import AllParams, params_of
+from ray_tracing_tpu_torch.render.integrator import trace
+from ray_tracing_tpu_torch.render.prb_scalar import AllParams, params_of, tiled_loss_and_grad
 from ray_tracing_tpu_torch.render.renderer import CARD_TILE, tile_rule
 
 torch.set_num_threads(2)
@@ -53,6 +56,18 @@ def test_tile_rule(what, rays, prims, cpu, card):
         assert tile_rule(rays, device, prims) == want
 
 
+def dense_pass(renderer, key):
+    """``(image, traced segments)`` of ``renderer``'s pass at ``key``, by
+    the dense loop integrator.trace over the pass's own camera rays and
+    ray ids, in one call."""
+    p = renderer.param
+    scene = stamp_shutter(renderer.scene, renderer.camera)
+    ro, rd, _, k_trace = camera_rays(renderer.camera, renderer._as_key(key), p.width, p.height,
+                                     renderer.antialias)
+    rad, segments = trace(scene, ro, rd, k_trace, renderer.max_depth, with_stats=True)
+    return rad.reshape(p.height, p.width, 3), int(segments)
+
+
 @pytest.fixture(scope="module")
 def zy():
     return prt.load_scene_json(os.path.join(ROOT, "data", "zy_scene.json"))
@@ -76,30 +91,51 @@ def test_one_tile_image_equals_tiles_of_1024(zy):
     assert torch.equal(one.render(11), four.render(11))
 
 
-def test_one_tile_gradient_matches_tiles_of_1024(zy):
+def _gradient_scene(which):
+    """(scene, camera) of the gradient cases: zy; data/scene.json (mesh,
+    transformed cuboid, medium); the gallery's C6 (79,488 triangles through
+    the cluster sweep; lambertian only, so no fuzz or IR)."""
+    if which == "c6":
+        scene, cam, _ = scenes.bunny_grid()
+        return scene, cam
+    bundle = prt.load_scene_json(os.path.join(ROOT, "data", f"{which}.json"))
+    return bundle.scene, bundle.camera
+
+
+# (scene, image side, tile, whether it has a fuzz row): C6's plain
+# cluster sweep costs the CPU ~10 ms a ray at depth 3, so it runs 32x32
+# in four tiles
+GRADIENT_CASES = [("zy_scene", SIZE, 1024, True), ("scene", SIZE, 1024, True),
+                  ("c6", 32, 256, False)]
+
+
+@pytest.mark.parametrize("which,size,tile,has_fuzz", GRADIENT_CASES,
+                         ids=["zy", "scene.json", "c6"])
+def test_one_tile_gradient_matches_tiles_of_1024(which, size, tile, has_fuzz):
     """tiled_loss_and_grad at its default tile (one tile) against tiles of
-    1,024 under the same key: the loss within the train cell's loss_gap,
-    each leaf's gradient within its grad_gap (the gap's norm over the
-    larger of the leaf's norm and the median leaf's)."""
-    scene = zy.scene
-    camera = Camera.build(zy.camera, 1.0)
-    ro, rd, _, k_trace = camera_rays(camera, rng.key(7), SIZE, SIZE, True)
-    target = torch.full((SIZE * SIZE, 3), 0.25)
+    1,024 (C6: 256) under the same key: the loss within the train cell's
+    loss_gap, each leaf's gradient within its grad_gap (the gap's norm
+    over the larger of the leaf's norm and the median nonzero leaf's)."""
+    scene, cam = _gradient_scene(which)
+    camera = Camera.build(cam, 1.0)
+    ro, rd, _, k_trace = camera_rays(camera, rng.key(7), size, size, True)
+    target = torch.full((size * size, 3), 0.25)
     params = params_of(scene)
 
     def tile_loss(rad, rows):
-        return torch.sum((rad - target[rows]) ** 2) / (SIZE * SIZE * 3)
+        return torch.sum((rad - target[rows]) ** 2) / (size * size * 3)
 
     def run(tile_size):
         return tiled_loss_and_grad(tile_loss, params, scene, ro, rd, k_trace, DEPTH,
                                    tile_size=tile_size)
 
     loss_1, grads_1 = run(None)
-    loss_4, grads_4 = run(1024)
+    loss_4, grads_4 = run(tile)
     assert abs(float(loss_1) - float(loss_4)) <= LOSS_GAP * abs(float(loss_4))
     norms = torch.tensor([float(g.double().norm()) for g in grads_4])
-    assert norms[0] > 0 and norms[3] > 0  # colors; fuzz, through the tangent batches
-    median = float(norms.median())
+    # colors; fuzz, through the tangent batches
+    assert norms[0] > 0 and (norms[3] > 0) == has_fuzz
+    median = float(norms[norms > 0].median())
     for name, a, b, norm in zip(AllParams._fields, grads_1, grads_4, norms):
         gap = float((a.double() - b.double()).norm()) / max(float(norm), median)
         assert gap <= GRAD_GAP, (name, gap)

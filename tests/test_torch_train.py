@@ -295,8 +295,8 @@ def zy_float64():
     target = trace_compacted(scene, ro, rd, key, ZY_DEPTH)
     rad = trace_compacted(_with_all(scene, fit), ro, rd, key, ZY_DEPTH)
     touched = torch.full((n,), 3, dtype=torch.uint8)
-    gfuzz, gir = scalar_tangent_pass(fit, scene, ro, rd, key, ZY_DEPTH, rad,
-                                     2.0 * (rad - target) / (3 * n), touched, tangent_cap=n)
+    gfuzz, gir = scalar_tangent_pass(fit, scene, ro, rd, key, ZY_DEPTH,
+                                     2.0 * (rad - target) / (3 * n), touched, tile_size=n)
     return scene, fit, loss, {"fuzz": gfuzz, "ir": gir}
 
 
