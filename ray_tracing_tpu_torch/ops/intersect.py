@@ -187,6 +187,15 @@ def _triangle_brute_phase_a(tr, ro, rd, t_min: float, t_max: float):
     return best_t, best_idx, best_t < INF
 
 
+def _on_device(x, like):
+    """``x``, a float or a float32 tensor, as a tensor on ``like``'s device;
+    a float is filled in there, with no copy from the host (which a CUDA
+    graph cannot capture)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
 def _boundary_nearest(bd, ro, rd, t_lo, t_hi):
     """Nearest hit of rays against one medium's boundary group (reference
     HittableGroup closest-hit fold, group.rs:58-67).  ``t_lo`` is a float
@@ -194,8 +203,7 @@ def _boundary_nearest(bd, ro, rd, t_lo, t_hi):
     n = ro.shape[0]
     best_t = torch.full((n,), INF, dtype=torch.float32, device=ro.device)
     found = torch.zeros((n,), dtype=torch.bool, device=ro.device)
-    lo = torch.broadcast_to(torch.as_tensor(t_lo, dtype=torch.float32, device=ro.device),
-                            (n,))[:, None]
+    lo = torch.broadcast_to(_on_device(t_lo, ro), (n,))[:, None]
 
     def fold(t_grid, mask_grid):
         nonlocal best_t, found
@@ -240,8 +248,8 @@ def _medium_phase_a(scene: SceneData, ro, rd, t_min, t_max, med_u):
             t_min_o, t_max_o = t_min, t_max
         t1, m1 = _boundary_nearest(bd, ro_o, rd_o, -INF, INF)
         t2, m2 = _boundary_nearest(bd, ro_o, rd_o, t1 + geo.EPSILON, INF)
-        lo = torch.maximum(t1, torch.as_tensor(t_min_o, dtype=torch.float32))
-        hi = torch.minimum(t2, torch.as_tensor(t_max_o, dtype=torch.float32))
+        lo = torch.maximum(t1, _on_device(t_min_o, t1))
+        hi = torch.minimum(t2, _on_device(t_max_o, t2))
         mask = m1 & m2 & (lo < hi)
         lo = torch.clamp_min(lo, 0.0)
         flight = md.niv[m] * torch.log(torch.clamp_min(med_u[:, m], 1e-38))

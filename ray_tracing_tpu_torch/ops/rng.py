@@ -11,10 +11,14 @@ the host in numpy, as is ``fold_in``, which the CLI and
 PyTorch has no ``uint32`` add or shift on the CPU, so the hash runs in
 int64 holding values below 2**32 and masks after every operation that
 can carry past bit 31.  A key is a numpy ``uint32`` array of shape (2,),
-the counterpart of ``jax.random.key_data(key)``.
+the counterpart of ``jax.random.key_data(key)``, or a
+:class:`StreamKey`, whose stream seeds are device data, so that a
+captured CUDA graph takes a new key as an input.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,9 +42,33 @@ def mul32(x, c: int):
     return (lo + hi) & M32
 
 
+class StreamKey(NamedTuple):
+    """A key's seeds for a few streams as device data: ``seeds[rows[s]]``
+    holds stream ``s``'s two 32-bit seeds (int64), the same words
+    :func:`_stream_seeds` folds on the host (:func:`stream_key`)."""
+
+    seeds: torch.Tensor  # (S, 2) int64
+    rows: dict  # stream -> its row of ``seeds``
+
+
+def stream_key(key, streams, device) -> StreamKey:
+    """The :class:`StreamKey` of ``key`` for ``streams`` on ``device``:
+    the seeds folded on the host, then one copy to the device (from
+    pinned memory to a card, so the host does not wait on it)."""
+    streams = tuple(int(s) for s in streams)
+    host = torch.tensor([_stream_seeds(key, s) for s in streams], dtype=torch.int64)
+    device = torch.device(device)
+    if device.type == "cuda":
+        host = host.pin_memory()
+    return StreamKey(host.to(device, non_blocking=True), {s: i for i, s in enumerate(streams)})
+
+
 def _stream_seeds(key, stream: int):
-    """Fold the key words and the stream index into two 32-bit seeds
-    (host Python ints)."""
+    """Fold the key words and the stream index into two 32-bit seeds:
+    host Python ints, or 0-d int64 tensors of a :class:`StreamKey`."""
+    if isinstance(key, StreamKey):
+        row = key.seeds[key.rows[stream]]
+        return row[0], row[1]
     s1 = 0x9E3779B9
     for w in np.asarray(key, np.uint32).reshape(-1):
         s1 = pcg(s1 ^ int(w))
@@ -53,7 +81,8 @@ def ray_uniforms(key, ids: torch.Tensor, stream: int, n_cols: int) -> torch.Tens
     """(n, n_cols) float32 uniforms in [0, 1) keyed per ray id: a pure
     function of (key, ray id, stream, column).  ``ids`` is an integer
     tensor; ids are taken modulo 2**32 as the JAX package's
-    ``astype(uint32)`` does."""
+    ``astype(uint32)`` does.  ``key`` is a host key or a
+    :class:`StreamKey` that holds ``stream``: the same words either way."""
     s1, s2 = _stream_seeds(key, stream)
     base = pcg((ids.to(torch.int64) & M32) ^ s1)  # (n,)
     cols = torch.arange(n_cols, dtype=torch.int64, device=ids.device)

@@ -3,8 +3,8 @@ of ``ray_tracing_tpu/ops/textures.py`` (reference src/texture/).
 
 Checker recursion is a bounded pointer walk, image sampling a gather
 from the flattened atlas, Perlin noise an integer lattice hash with
-Hermite interpolation.  Image and noise textures are evaluated only on
-the rays whose leaf texture needs them.
+Hermite interpolation.  Image and noise textures are evaluated on every
+ray and selected by its leaf texture's type.
 """
 
 from __future__ import annotations
@@ -18,7 +18,6 @@ from ray_tracing_tpu_torch.models.scene import (
     TextureTable,
 )
 from ray_tracing_tpu_torch.ops.rng import M32, mul32
-from ray_tracing_tpu_torch.utils.profiling import sync
 
 
 def _lattice_hash(i, j, k):
@@ -115,27 +114,19 @@ def resolve_leaf(tt: TextureTable, idx, p):
 def texture_value(tt: TextureTable, idx, uv, p, *, with_leaf: bool = False):
     """Colors of textures ``idx`` (N,) at (uv (N, 2), p (N, 3)): (N, 3),
     or ``(color, resolved leaf)`` with ``with_leaf``, so that a caller
-    that also needs the leaf walks the checker chain once."""
+    that also needs the leaf walks the checker chain once.
+
+    The image and noise values are computed on every lane and selected
+    by the leaf's type, with no host read: a lane of another type takes
+    its solid color, and its image or noise value gets a zero gradient."""
     idx = resolve_leaf(tt, idx.long(), p)
     ttype = tt.ttype[idx]
     out = tt.color[idx]  # TEX_SOLID (reference solid_color.rs:21-28)
-
     if tt.images.shape[0] > 0:
-        with sync("textures.image_sel"):
-            sel = torch.nonzero(ttype == TEX_IMAGE).squeeze(1)
-        if sel.numel():
-            out[sel] = image_value(tt, tt.image[idx[sel]], uv[sel])
-
+        out = torch.where((ttype == TEX_IMAGE)[:, None], image_value(tt, tt.image[idx], uv), out)
     if tt.max_noise_depth > 0:
-        with sync("textures.noise_sel"):
-            sel = torch.nonzero(ttype == TEX_NOISE).squeeze(1)
-        if sel.numel():
-            leaf = idx[sel]
-            turb = perlin_turb(
-                tt.scale[leaf][:, None] * p[sel] + tt.noise_offset[leaf],
-                tt.noise_depth[leaf],
-                tt.max_noise_depth,
-            )
-            # white * turb (reference noise.rs:160-171)
-            out[sel] = turb[:, None].expand(-1, 3)
+        turb = perlin_turb(tt.scale[idx][:, None] * p + tt.noise_offset[idx],
+                           tt.noise_depth[idx], tt.max_noise_depth)
+        # white * turb (reference noise.rs:160-171)
+        out = torch.where((ttype == TEX_NOISE)[:, None], turb[:, None], out)
     return (out, idx) if with_leaf else out

@@ -217,8 +217,9 @@ def make_prb_train_step_all_direct(camera: Camera, template_scene: SceneData, *,
     rank runs prb_scalar.tiled_loss_and_grad over its shard with the masked
     L2 loss ``sum(w (rad - target)^2) / (3 n)`` (padded rays weight 0),
     then one all_reduce sums the gradients and another the loss.
-    ``template_scene``'s material types fix the fuzz / IR rows once.
-    Returns ``step(params, scene, key, target) -> (params', loss)``."""
+    ``template_scene``'s material types fix the fuzz / IR rows once, on
+    its device.  Returns ``step(params, scene, key, target) -> (params',
+    loss)``."""
     n = width * height
     scalar_rows = _active_rows(template_scene)
 

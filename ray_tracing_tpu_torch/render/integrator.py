@@ -163,22 +163,15 @@ def bounded_bounce_loop(bounces: int, body, carry, alive_of):
     return carry
 
 
-def run_stage(bounce_fn, bounces: int, carry, live: int):
-    """Bounce the live prefix ``[:live]`` of an alive-first wavefront for
-    one stage and write it back into the full-width state.
-
-    ``carry`` holds per-ray tensors (leading dim n) with ``alive`` at
-    index 4, and 0-d tensors, which pass through whole;
-    ``bounce_fn(b, part)`` bounces the prefix at the stage's bounce b.
-    Returns the updated carry.
+def write_back(carry, part, out, live: int):
+    """The full-width carry with the prefix ``part = carry[:live]``
+    replaced by ``out`` (0-d entries taken from ``out``).
 
     The prefix is written back in place, unless the stage's state
     requires grad (the fuzz / IR replay of render/prb_scalar.py): there
     the prefix's graph holds views of the full-width tensors, which an
     in-place write would invalidate, so the full width is rebuilt out of
     place from the prefix and the untouched rows."""
-    part = tuple(x[:live] if x.dim() else x for x in carry)
-    out = bounded_bounce_loop(bounces, bounce_fn, part, lambda c: c[4])
     out_of_place = any(x.requires_grad for x in out)
     merged = []
     for full, before, after in zip(carry, part, out):
@@ -194,8 +187,22 @@ def run_stage(bounce_fn, bounces: int, carry, live: int):
     return tuple(merged)
 
 
+def run_stage(bounce_fn, bounces: int, carry, live: int):
+    """Bounce the live prefix ``[:live]`` of an alive-first wavefront for
+    one stage and write it back into the full-width state
+    (:func:`write_back`).
+
+    ``carry`` holds per-ray tensors (leading dim n) with ``alive`` at
+    index 4, and 0-d tensors, which pass through whole;
+    ``bounce_fn(b, part)`` bounces the prefix at the stage's bounce b.
+    Returns the updated carry."""
+    part = tuple(x[:live] if x.dim() else x for x in carry)
+    out = bounded_bounce_loop(bounces, bounce_fn, part, lambda c: c[4])
+    return write_back(carry, part, out, live)
+
+
 def trace_stages(scene: SceneData, key, max_depth: int, carry, *, count_segments: bool,
-                 tape=None):
+                 tape=None, stages=None):
     """Bounce ``carry`` through :func:`stage_schedule` with wavefront
     compaction, the one stage walker of every compacted trace.
 
@@ -204,7 +211,11 @@ def trace_stages(scene: SceneData, key, max_depth: int, carry, *, count_segments
     bounces only the live prefix.  Returns ``(carry, pos)``, with
     ``pos`` each sorted ray's input position.  ``tape``, when given, is
     told each stage's layout as ``tape.start_stage(pos, live)`` and
-    takes every bounce's rows (see :func:`_bounce`)."""
+    takes every bounce's rows (see :func:`_bounce`).  ``stages``, when
+    given, runs each stage in place of the bounce loops, as
+    ``stages(scene, key, stage, offset, bounces, carry, live) -> carry``
+    with the stage's first global bounce ``offset`` and the live count of
+    the alive-first ``carry`` (render/stage_graphs.py)."""
     n = carry[0].shape[0]
     pos = torch.arange(n, dtype=torch.int64, device=carry[0].device)
     offset = 0
@@ -213,12 +224,8 @@ def trace_stages(scene: SceneData, key, max_depth: int, carry, *, count_segments
         def body(b, c, _offset=offset):
             return _bounce(scene, key, _offset + b, c, count_segments, tape)
 
-        if stage == 0:
-            if tape is not None:
-                tape.start_stage(pos, n)
-            for b in range(bounces):
-                carry = body(b, carry)
-        else:
+        live = n
+        if stage:
             rad, thr, ro, rd, alive, ids, segments = carry
             with span("rtt.compact"):
                 alive, (rad, thr, ro, rd), (ids, pos) = compact_wavefront(
@@ -226,14 +233,34 @@ def trace_stages(scene: SceneData, key, max_depth: int, carry, *, count_segments
                 )
                 with sync("integrator.live_count"):
                     live = int(alive.sum())
-            if tape is not None:
-                tape.start_stage(pos, live)
-            carry = run_stage(body, bounces, (rad, thr, ro, rd, alive, ids, segments), live)
+            carry = (rad, thr, ro, rd, alive, ids, segments)
+        if tape is not None:
+            tape.start_stage(pos, live)
+        if stages is not None:
+            carry = stages(scene, key, stage, offset, bounces, carry, live)
+        elif stage == 0:
+            for b in range(bounces):
+                carry = body(b, carry)
+        else:
+            carry = run_stage(body, bounces, carry, live)
         offset += bounces
     return carry, pos
 
 
-def trace_subset_dot(scene: SceneData, ro, rd, key, max_depth: int, g, alive0, ids0):
+def stage_bounces(scene: SceneData, key, offset: int, bounces: int, rays):
+    """Every bounce of one stage, with no early exit, over ``rays`` =
+    (rad, thr, ro, rd, alive, ids): returns (rad, thr, ro, rd, alive).
+    The body of a graphed replay stage (render/stage_graphs.py); a bounce
+    leaves a dead ray as it is, so the bounces past the last live ray
+    change nothing."""
+    carry = tuple(rays) + (None,)
+    for b in range(bounces):
+        carry = _bounce(scene, key, offset + b, carry, False)
+    return carry[:5]
+
+
+def trace_subset_dot(scene: SceneData, ro, rd, key, max_depth: int, g, alive0, ids0, *,
+                     stages=None):
     """``vdot(g, radiance)`` of a gathered ray subset, compacted.
 
     The fuzz / IR pass (render/prb_scalar.py) needs the gradient of
@@ -245,11 +272,12 @@ def trace_subset_dot(scene: SceneData, ro, rd, key, max_depth: int, g, alive0, i
     is differentiable by reverse-mode autograd (the stage writes go out
     of place while the state requires grad, :func:`run_stage`).  The dot
     sums in float64, so its value does not depend on the order of the
-    rays (the dense replay sums them in input order)."""
+    rays (the dense replay sums them in input order).  ``stages`` as in
+    :func:`trace_stages` (on the card: the replay's CUDA graphs)."""
     rad, thr, ro, rd, _, _, segments = _initial_carry(ro, rd, 0)
     carry = (rad, thr, ro, rd, alive0, ids0.to(torch.int64), segments)
     (rad, thr, _, _, alive, _, _), pos = trace_stages(
-        scene, key, max_depth, carry, count_segments=False
+        scene, key, max_depth, carry, count_segments=False, stages=stages
     )
     rad = _finish(scene, rad, thr, alive)
     return (g[pos] * rad).sum(dtype=torch.float64)

@@ -32,16 +32,18 @@ takes ``loss.backward()``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ray_tracing_tpu_torch.models.scene import MAT_DIELECTRIC, MAT_METAL, SceneData
+from ray_tracing_tpu_torch.ops.rng import TIME_STREAM, stream_key
 from ray_tracing_tpu_torch.render.integrator import trace_compacted, trace_subset_dot
 from ray_tracing_tpu_torch.render.prb_tape import tape_sweep, trace_taped
 from ray_tracing_tpu_torch.render.renderer import tile_rule
+from ray_tracing_tpu_torch.render.stage_graphs import replay_graphs
 from ray_tracing_tpu_torch.utils.profiling import span, sync
 
 
@@ -85,12 +87,18 @@ def _with_all(scene: SceneData, p: AllParams) -> SceneData:
 
 def _active_rows(scene: SceneData, scalar_rows=None):
     """Material rows whose fuzz / IR matter: (metal rows, dielectric
-    rows), read from the scene's material types unless ``scalar_rows``
-    gives them (``((), ())`` disables the tangent pass)."""
-    if scalar_rows is not None:
-        return tuple(np.asarray(rows, np.int64) for rows in scalar_rows)
-    mtype = scene.materials.mtype.cpu().numpy()
-    return np.nonzero(mtype == MAT_METAL)[0], np.nonzero(mtype == MAT_DIELECTRIC)[0]
+    rows), int64 tensors on the scene's device, read from the scene's
+    material types unless ``scalar_rows`` gives them (``((), ())``
+    disables the tangent pass).  A caller that fixes its rows once
+    passes these tensors on, and the tangent pass takes them with no
+    copy to the device."""
+    device = scene.materials.mtype.device
+    if scalar_rows is None:
+        mtype = scene.materials.mtype
+        with sync("prb_scalar.rows"):  # a read of the material types
+            scalar_rows = (torch.nonzero(mtype == MAT_METAL)[:, 0],
+                           torch.nonzero(mtype == MAT_DIELECTRIC)[:, 0])
+    return tuple(torch.as_tensor(rows, dtype=torch.int64, device=device) for rows in scalar_rows)
 
 
 @torch.no_grad()
@@ -110,7 +118,13 @@ def scalar_tangent_pass(params: AllParams, scene: SceneData, ro, rd, key, max_de
     ``rtt.tangent_replay`` span, with every active row of both families
     a leaf; one backward gives every leaf's gradient, and the batch's
     graph is freed before the next.  The other rays have an exactly-zero
-    derivative and are never traced."""
+    derivative and are never traced.
+
+    On the card the replay's stages run as CUDA graphs
+    (render/stage_graphs.py): a batch is padded with dead rays to a width
+    the graphs keep from step to step (``ReplayGraphs.width``) and the
+    key goes to the device once as stream seeds (ops/rng.py:StreamKey).  On the CPU the
+    replay runs eagerly at the batch's own widths."""
     with span("rtt.tangent_pass"):
         p = AllParams(*(x.detach() for x in params))
         gfuzz, gir = torch.zeros_like(p.fuzz), torch.zeros_like(p.ir)
@@ -118,8 +132,7 @@ def scalar_tangent_pass(params: AllParams, scene: SceneData, ro, rd, key, max_de
         for name, rows_j, bit, grad in zip(("fuzz", "ir"), _active_rows(scene, scalar_rows),
                                            (1, 2), (gfuzz, gir)):
             if len(rows_j):
-                with sync("prb_scalar.rows"):  # a copy to the device that waits on it
-                    active.append((name, torch.as_tensor(rows_j, device=grad.device), grad))
+                active.append((name, rows_j, grad))
                 bits |= bit
         if not active:
             return gfuzz, gir
@@ -131,16 +144,25 @@ def scalar_tangent_pass(params: AllParams, scene: SceneData, ro, rd, key, max_de
         rog = torch.cat([ro, rd, g], dim=1)  # one gather per batch
         thetas = [getattr(p, name)[rows] for name, rows, _ in active]
         parts = [torch.zeros_like(theta) for theta in thetas]
+        graphs = replay_graphs(scene, ro.device)
+        if graphs is not None:
+            key = stream_key(key, [*range(max_depth), TIME_STREAM], ro.device)
         for start in range(0, picked.shape[0], cap):
-            with span("rtt.tangent_replay"), torch.enable_grad():
+            with span("rtt.tangent_replay"), torch.enable_grad(), \
+                    (graphs.lock if graphs is not None else contextlib.nullcontext()):
                 sub = picked[start:start + cap]
+                count = sub.shape[0]
+                width = count if graphs is None else graphs.width(("batch", max_depth), count)
+                alive0 = torch.arange(width, device=ro.device) < count
+                sub = torch.nn.functional.pad(sub, (0, width - count))  # dead rays: row 0
                 row = rog[sub]
                 leaves = [theta.detach().requires_grad_(True) for theta in thetas]
                 s = _with_all(scene, p._replace(**{
                     name: getattr(p, name).index_copy(0, rows, leaf)
                     for (name, rows, _), leaf in zip(active, leaves)}))
-                val = trace_subset_dot(s, row[:, 0:3], row[:, 3:6], key, max_depth, row[:, 6:9],
-                                       torch.ones_like(sub, dtype=torch.bool), ids_base + sub)
+                val = trace_subset_dot(s, row[:, 0:3], row[:, 3:6], key, max_depth,
+                                       torch.where(alive0[:, None], row[:, 6:9], 0.0), alive0,
+                                       ids_base + sub, stages=graphs)
                 if val.requires_grad:  # not at depth 1: no scattered direction is traced
                     for acc, part in zip(parts, torch.autograd.grad(val, leaves)):
                         acc += part

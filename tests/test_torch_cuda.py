@@ -4,7 +4,9 @@ past what shared memory holds; K5 over a table above 32,768 triangles
 without clusters, and the brute-force grid against K5; K2 bit for bit
 against its plain version run on the CPU, and repeatable), the
 render and gradient paths on the card (the card's one tile against
-tiles of 65,536 among them), and multicard_torch.py with one
+tiles of 65,536 among them; the fuzz / IR replay's CUDA graphs against
+the eager replay, and their kernels' launch counts against the
+profiler's), and multicard_torch.py with one
 NCCL rank on each card present.  They skip without a GPU.  The
 file imports no JAX, so on a machine with a GPU and without JAX it runs
 on its own:
@@ -684,6 +686,162 @@ def test_zy_train_step_default_tile_matches_tiles_of_65536(cuda, zy, monkeypatch
     assert norms_10[0] > 0 and median > 0
     for name, a, b in zip(AllParams._fields, norms_1, norms_10):
         assert abs(a - b) <= 1.5e-2 * max(b, median), (name, a, b)
+
+
+def _eager_replay(scene, ro, rd, key, depth, g, touched):
+    """(gfuzz, gir) of one eager replay of the touched rays at their own
+    widths (integrator.trace_subset_dot without graphs, the host key)."""
+    from ray_tracing_tpu_torch.render.integrator import trace_subset_dot
+    from ray_tracing_tpu_torch.render.prb_scalar import _active_rows, _with_all
+
+    p = params_of(scene)
+    rows = _active_rows(scene)
+    sub = torch.nonzero((touched & 3) != 0).squeeze(1)
+    leaves = [p.fuzz[rows[0]].requires_grad_(True), p.ir[rows[1]].requires_grad_(True)]
+    s = _with_all(scene, p._replace(fuzz=p.fuzz.index_copy(0, rows[0], leaves[0]),
+                                    ir=p.ir.index_copy(0, rows[1], leaves[1])))
+    val = trace_subset_dot(s, ro[sub], rd[sub], key, depth, g[sub],
+                           torch.ones_like(sub, dtype=torch.bool), sub)
+    out = [torch.zeros_like(p.fuzz), torch.zeros_like(p.ir)]
+    for o, r, grad in zip(out, rows, torch.autograd.grad(val, leaves)):
+        o[r] = grad
+    return tuple(out)
+
+
+def test_replay_graphs_on_card(cuda, zy):
+    """zy at 128x128, depth 20 (three stages): the fuzz / IR pass with its
+    stages as CUDA graphs (render/stage_graphs.py) against the eager
+    replay within rtol 1e-5, atol 2e-6; after a first step, which
+    captures each stage's width, a second step in the same buckets
+    captures nothing, replays 3 stages and repeats the first step's
+    gradients bit for bit; a geometry tensor
+    that is another tensor (same values) is captured anew, with the same
+    gradients."""
+    import dataclasses
+
+    from ray_tracing_tpu_torch.render.prb_scalar import scalar_tangent_pass
+    from ray_tracing_tpu_torch.render.prb_tape import trace_taped
+    from ray_tracing_tpu_torch.render.stage_graphs import replay_graphs
+
+    size, depth = 128, 20
+    scene = zy.scene.to(cuda)
+    ro, rd, _, key = camera_rays(Camera.build(zy.camera, 1.0).to(cuda), rng.key(19), size, size)
+    g = torch.from_numpy(np.random.RandomState(20).uniform(0.5, 1.5, (size * size, 3))
+                         .astype(np.float32)).to(cuda)
+    _, touched, _ = trace_taped(scene, ro, rd, key, depth)
+    graphs = replay_graphs(scene, cuda)
+
+    def step(s):
+        return scalar_tangent_pass(params_of(s), s, ro, rd, key, depth, g, touched)
+
+    steps = [step(scene)]
+    captures, replays = graphs.captures, graphs.replays
+    steps.append(step(scene))
+    assert (graphs.captures, graphs.replays) == (captures, replays + 3)
+    want = _eager_replay(scene, ro, rd, key, depth, g, touched)
+    for name, a, b, c in zip(("fuzz", "ir"), steps[0], steps[1], want):
+        assert torch.equal(a, b), name
+        assert (c != 0).any(), name
+        np.testing.assert_allclose(b.cpu().numpy(), c.cpu().numpy(), rtol=1e-5, atol=2e-6,
+                                   err_msg=name)
+    moved = dataclasses.replace(scene, spheres=dataclasses.replace(
+        scene.spheres, center=scene.spheres.center.clone()))
+    captures = graphs.captures
+    again = step(moved)
+    assert graphs.captures == captures + 3
+    for a, b in zip(again, steps[1]):
+        assert torch.equal(a, b)
+
+
+def test_replay_launch_counts_match_the_profiler_on_card(cuda, zy):
+    """Two steps of zy at 128x128, depth 20 (the taped forward, then the
+    fuzz / IR pass with its stages as CUDA graphs), the first capturing
+    every stage anew: each hand-written kernel's wrapper counts the
+    launches the profiler sees, a replay the kernels its graphs hold and
+    a capture none (benchmark/harness/profile.py reads both)."""
+    import dataclasses
+    import importlib.util
+
+    from ray_tracing_tpu_torch.render.prb_scalar import scalar_tangent_pass
+    from ray_tracing_tpu_torch.render.prb_tape import trace_taped
+    from ray_tracing_tpu_torch.render.stage_graphs import replay_graphs
+
+    spec = importlib.util.spec_from_file_location("harness_profile",
+                                                  "benchmark/harness/profile.py")
+    harness = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(harness)
+    size, depth = 128, 20
+    scene = zy.scene.to(cuda)
+    scene = dataclasses.replace(scene, spheres=dataclasses.replace(
+        scene.spheres, center=scene.spheres.center.clone()))  # not captured before
+    ro, rd, _, key = camera_rays(Camera.build(zy.camera, 1.0).to(cuda), rng.key(19), size, size)
+    g = torch.from_numpy(np.random.RandomState(20).uniform(0.5, 1.5, (size * size, 3))
+                         .astype(np.float32)).to(cuda)
+    graphs = replay_graphs(scene, cuda)
+    captures, replays = graphs.captures, graphs.replays
+
+    def steps():
+        for _ in range(2):
+            _, touched, _ = trace_taped(scene, ro, rd, key, depth)
+            scalar_tangent_pass(params_of(scene), scene, ro, rd, key, depth, g, touched)
+
+    _, trace = harness.profile(steps, torch.cuda.synchronize)
+    assert graphs.captures - captures == 3 and graphs.replays - replays == 6
+    assert trace.family_seen("K1") > 0
+    assert trace.launch_check() == []
+
+
+def _moving_spheres(device):
+    """A fuzzy metal sphere and a glass sphere in motion over a Perlin
+    floor under an important light, and its camera, shutter [0, 1]."""
+    b = prt.SceneBuilder(background=(0.05, 0.05, 0.05))
+    floor = b.add_lambertian(b.add_texture_noise(0.7, 4))
+    light = b.add_diffuse_light(b.add_texture_solid((4.0, 3.5, 3.0)))
+    metal = b.add_metal((0.9, 0.85, 0.8), 0.2)
+    glass = b.add_dielectric(1.5)
+    b.add_rect("zx", -2, 2, -2, 2, 0.0, floor, positive=True)
+    b.add_rect("zx", -1, 1, -1, 1, 3.0, light, positive=False, important=True)
+    b.add_sphere_moving((-0.8, 0.5, -0.8), (-0.5, 0.5, -0.8), 0.4, metal)
+    b.add_sphere_moving((0.8, 0.5, -0.8), (0.8, 0.7, -0.8), 0.4, glass)
+    camera = Camera.build(prt.CameraParam((0.0, 1.2, 1.8), (0.0, 0.5, -0.8), 60, time0=0.0,
+                                          time1=1.0), 1.0)
+    return b.build().to(device), camera.to(device)
+
+
+def test_replay_graphs_motion_scene_on_card(cuda):
+    """Moving spheres, whose shutter window each step stamps anew
+    (models/camera.py:stamp_shutter, another tensor of the same values):
+    the graphed fuzz / IR pass captures its stages at the first step
+    only and replays them at the second, with the first step's
+    gradients bit for bit; both match the eager replay within rtol 1e-5,
+    atol 2e-6."""
+    from ray_tracing_tpu_torch.models.camera import stamp_shutter
+    from ray_tracing_tpu_torch.render.prb_scalar import scalar_tangent_pass
+    from ray_tracing_tpu_torch.render.prb_tape import trace_taped
+    from ray_tracing_tpu_torch.render.stage_graphs import replay_graphs
+
+    size, depth = 128, 8
+    scene, camera = _moving_spheres(cuda)
+    ro, rd, _, key = camera_rays(camera, rng.key(22), size, size)
+    g = torch.from_numpy(np.random.RandomState(23).uniform(0.5, 1.5, (size * size, 3))
+                         .astype(np.float32)).to(cuda)
+    graphs = replay_graphs(scene, cuda)
+    steps, captured, replayed = [], [], []
+    for _ in range(2):
+        s = stamp_shutter(scene, camera)
+        _, touched, _ = trace_taped(s, ro, rd, key, depth)
+        captures, replays = graphs.captures, graphs.replays
+        steps.append(scalar_tangent_pass(params_of(s), s, ro, rd, key, depth, g, touched))
+        captured.append(graphs.captures - captures)
+        replayed.append(graphs.replays - replays)
+    assert captured[0] == replayed[0] > 0
+    assert (captured[1], replayed[1]) == (0, replayed[0])
+    want = _eager_replay(s, ro, rd, key, depth, g, touched)
+    for name, a, b, c in zip(("fuzz", "ir"), steps[0], steps[1], want):
+        assert torch.equal(a, b), name
+        assert (c != 0).any(), name
+        np.testing.assert_allclose(b.cpu().numpy(), c.cpu().numpy(), rtol=1e-5, atol=2e-6,
+                                   err_msg=name)
 
 
 def test_motion_render_on_card(cuda, motion):
